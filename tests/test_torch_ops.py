@@ -1,0 +1,339 @@
+"""Port ops (``ceigm_unet_tpu_torch.ops``) against the JAX package's entry
+points, on the CPU: each kernel op's plain PyTorch version against the JAX
+function, which runs its Pallas kernel in interpret mode here. Inputs are
+made with numpy from a seed and handed to both. The hand-written kernels
+themselves are held against these plain versions on a card by
+tests/test_torch_cuda.py.
+"""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ceigm_unet_tpu.ops import grid_sample as jgs
+from ceigm_unet_tpu.ops.activations import gelu as jgelu
+from ceigm_unet_tpu.ops.ffn_pallas import (_cffn_ref, custom_ffn_fused as
+                                           jcffn, inception_composite as
+                                           jcomposite)
+from ceigm_unet_tpu.ops.quad_scan import sscan_quad_ln_cat
+from ceigm_unet_tpu.ops.resize import (zoom_slices as jzoom,
+                                       zoom_slices_nearest as jzoom_nearest)
+from ceigm_unet_tpu.ops.tapconv import lgag_gate_eval as jlgag
+from ceigm_unet_tpu_torch.ops import _build
+from ceigm_unet_tpu_torch.ops.activations import gelu
+from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused, dw3_gelu,
+                                          ffn_gemm, inception7,
+                                          inception_composite)
+from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
+                                                  grid_sample_bilinear)
+from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
+                                                quad_scan_ln_cat_ref)
+from ceigm_unet_tpu_torch.ops.resize import zoom_slices, zoom_slices_nearest
+from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate, lgag_gate_eval
+
+torch.set_num_threads(1)
+
+# fp32: the scan/FFN/LGAG kernels' own test tolerances; bf16: the reference
+# kernel suite's bf16 row (tests/test_kernel_matrix.py)
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+       "bfloat16": dict(rtol=3e-2, atol=5e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _f32(a):
+    a = a.float().numpy() if isinstance(a, torch.Tensor) else a
+    return np.asarray(a, np.float32)
+
+
+def _both(a, dtype="float32"):
+    """numpy -> (jax array, torch tensor) with identical values."""
+    j = jnp.asarray(a, JDT[dtype])
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(TDT[dtype])
+    return j, t
+
+
+# --- quad scan + group LN ----------------------------------------------------
+
+def _quad_inputs(B, H, W, D, seed):
+    rng = np.random.default_rng(seed)
+    K, L = 4, H * W
+    return dict(
+        u=rng.standard_normal((B, K, L, D)),
+        dt=rng.standard_normal((B, K, L, D)) * 0.5,
+        Bs=rng.standard_normal((B, K, L)),
+        Cs=rng.standard_normal((B, K, L)),
+        A=-np.exp(rng.standard_normal((K, D)) * 0.5),
+        bias=rng.standard_normal((K, D)) * 0.3,
+        Dv=rng.standard_normal((K, D)),
+        lns=1.0 + rng.standard_normal((K, D)) * 0.1,
+        lnb=rng.standard_normal((K, D)) * 0.1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 6, 10, 8), (2, 7, 7, 12)])
+def test_quad_scan_ln_cat_matches_jax(shape, dtype):
+    B, H, W, D = shape
+    a = _quad_inputs(B, H, W, D, seed=D)
+    act = {k: _both(a[k], dtype) for k in ("u", "dt", "Bs", "Cs")}
+    prm = {k: _both(a[k]) for k in ("A", "bias", "Dv", "lns", "lnb")}
+    dirs = (1, 2, 3, 4)
+    want = sscan_quad_ln_cat(
+        *[act[k][0] for k in ("u", "dt", "Bs", "Cs")],
+        *[prm[k][0] for k in ("A", "bias", "Dv")],
+        (prm["lns"][0], prm["lnb"][0]), H, W, dirs)
+    got = quad_scan_ln_cat(*[act[k][1] for k in ("u", "dt", "Bs", "Cs")],
+                           *[prm[k][1] for k in ("A", "bias", "Dv", "lns",
+                                                 "lnb")], H, W, dirs)
+    assert got.dtype == TDT[dtype] and got.shape == (B, H * W, 4 * D)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def test_quad_scan_direction_order_and_strides():
+    """Permuted directions and a strided (B, L, K, D) view give the same
+    result as contiguous inputs scanned group by group."""
+    B, H, W, D = 2, 5, 6, 4
+    a = _quad_inputs(B, H, W, D, seed=3)
+    t = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in a.items()}
+    dirs = (3, 1, 4, 2)
+    ref = quad_scan_ln_cat_ref(t["u"], t["dt"], t["Bs"], t["Cs"], t["A"],
+                               t["bias"], t["Dv"], t["lns"], t["lnb"], H, W,
+                               dirs)
+    u_blkd = t["u"].permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    got = quad_scan_ln_cat(u_blkd, t["dt"], t["Bs"], t["Cs"], t["A"],
+                           t["bias"], t["Dv"], t["lns"], t["lnb"], H, W, dirs)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=0)
+    for k, d in enumerate(dirs):
+        one = quad_scan_ln_cat_ref(
+            *[t[n][:, k:k + 1] for n in ("u", "dt", "Bs", "Cs")],
+            *[t[n][k:k + 1] for n in ("A", "bias", "Dv", "lns", "lnb")],
+            H, W, (d,))
+        np.testing.assert_allclose(got[..., k * D:(k + 1) * D].numpy(),
+                                   one.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# --- CustomFfn -----------------------------------------------------------------
+
+def _cffn_inputs(H, W, C, HID, seed):
+    rng = np.random.default_rng(seed)
+    g = HID // 8
+    return dict(
+        x=rng.standard_normal((1, H * W, C)),
+        w1=rng.standard_normal((C, HID)) * 0.05,
+        b1=rng.standard_normal(HID) * 0.1,
+        dwk=rng.standard_normal((3, 3, 1, HID)) * 0.2,
+        dwb=rng.standard_normal(HID) * 0.1,
+        p3k=rng.standard_normal((3, 3, 1, g)) * 0.2,
+        p5k=rng.standard_normal((5, 5, 1, g)) * 0.1,
+        p7k=rng.standard_normal((7, 7, 1, g)) * 0.05,
+        p3b=rng.standard_normal(g) * 0.1, p5b=rng.standard_normal(g) * 0.1,
+        p7b=rng.standard_normal(g) * 0.1,
+        w2=rng.standard_normal((HID, C)) * 0.05,
+        b2=rng.standard_normal(C) * 0.1)
+
+
+def test_inception_composite_matches_jax():
+    a = _cffn_inputs(4, 4, 8, 64, seed=1)
+    names = ("p3k", "p5k", "p7k", "p3b", "p5b", "p7b")
+    jk, jb = jcomposite(64, 8, *[_both(a[n])[0] for n in names], jnp.float32)
+    tk, tb = inception_composite(64, 8, *[_both(a[n])[1] for n in names],
+                                 torch.float32)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("HWC", [(8, 10, 16, 32), (14, 14, 32, 64)])
+def test_custom_ffn_matches_jax(HWC, dtype):
+    H, W, C, HID = HWC
+    a = _cffn_inputs(H, W, C, HID, seed=C)
+    comp = ("p3k", "p5k", "p7k", "p3b", "p5b", "p7b")
+    jinck, jincb = jcomposite(HID, HID // 8, *[_both(a[n])[0] for n in comp],
+                              jnp.float32)
+    tinck, tincb = inception_composite(HID, HID // 8,
+                                       *[_both(a[n])[1] for n in comp],
+                                       torch.float32)
+    cast = {n: _both(a[n], dtype if n in ("x", "w1", "w2") else "float32")
+            for n in ("x", "w1", "b1", "dwk", "dwb", "w2", "b2")}
+    jargs = [cast["x"][0], cast["w1"][0], cast["b1"][0], cast["dwk"][0],
+             cast["dwb"][0], jinck, jincb, cast["w2"][0], cast["b2"][0]]
+    targs = [cast["x"][1], cast["w1"][1], cast["b1"][1], cast["dwk"][1],
+             cast["dwb"][1], tinck, tincb, cast["w2"][1], cast["b2"][1]]
+    n_tap = 3 * (HID // 8)
+    got = custom_ffn_fused(*targs, H, W, n_tap)
+    assert got.dtype == TDT[dtype]
+    for want in (jcffn(*jargs, H, W, n_tap), _cffn_ref(*jargs, H, W)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+def test_ffn_stages_compose_to_custom_ffn():
+    """fc1 GEMM -> dw3x3+GELU -> inception -> fc2 GEMM, the stages the card
+    runs as separate kernels, equal the plain CustomFfn in fp32."""
+    H, W, C, HID = 6, 7, 16, 64
+    a = {k: torch.from_numpy(np.asarray(v, np.float32))
+         for k, v in _cffn_inputs(H, W, C, HID, seed=2).items()}
+    inck, incb = inception_composite(HID, HID // 8, a["p3k"], a["p5k"],
+                                     a["p7k"], a["p3b"], a["p5b"], a["p7b"],
+                                     torch.float32)
+    h = ffn_gemm(a["x"].reshape(H * W, C), a["w1"], a["b1"], torch.float32)
+    q = inception7(dw3_gelu(h, a["dwk"], a["dwb"], H, W), inck, incb, H, W,
+                   HID - 3 * (HID // 8))
+    got = ffn_gemm(q, a["w2"], a["b2"], torch.float32)
+    want = custom_ffn_fused(a["x"], a["w1"], a["b1"], a["dwk"], a["dwb"],
+                            inck, incb, a["w2"], a["b2"], H, W)
+    np.testing.assert_allclose(got.numpy(), want.reshape(H * W, C).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- DySample grouped grid-sample ---------------------------------------------
+
+def _dysample_grid(rng, B, H, W, g, offset_std):
+    """DySample-like grid (B, 2H, 2W, g, 2): base i + sin(pi(i+1)/S), the
+    +-0.25 subpixel positions, and learned offsets of ``offset_std`` px."""
+    def axis(n):
+        base = np.arange(n) + np.sin(np.pi * np.arange(1, n + 1) / n)
+        return np.repeat(base, 2) + np.tile([-0.25, 0.25], n)
+    cx = axis(W)[None, None, :, None] + rng.standard_normal(
+        (B, 2 * H, 2 * W, g)) * offset_std
+    cy = axis(H)[None, :, None, None] + rng.standard_normal(
+        (B, 2 * H, 2 * W, g)) * offset_std
+    return np.stack([2.0 * cx / W - 1.0, 2.0 * cy / H - 1.0], axis=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BHWC", [(2, 7, 7, 16), (2, 14, 14, 32)])
+def test_dysample_grid_sample_matches_jax(BHWC, dtype):
+    B, H, W, C = BHWC
+    rng = np.random.default_rng(C)
+    jx, tx = _both(rng.standard_normal((B, H, W, C)), dtype)
+    jg, tg = _both(_dysample_grid(rng, B, H, W, 4, 0.1))
+    got = dysample_grid_sample(tx, tg)
+    assert got.dtype == TDT[dtype] and got.shape == (B, 2 * H, 2 * W, C)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else TOL[dtype]
+    for want in (jgs._gs_banded_groups_impl(jx, jg, interpret=True),
+                 jgs._dysample_ref(jx, jg)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
+def test_grid_sample_bilinear_border_clamp_matches_jax():
+    rng = np.random.default_rng(4)
+    jx, tx = _both(rng.standard_normal((2, 5, 7, 3)))
+    jg, tg = _both(rng.uniform(-1.4, 1.4, (2, 9, 6, 2)))
+    np.testing.assert_allclose(grid_sample_bilinear(tx, tg).numpy(),
+                               np.asarray(jgs.grid_sample_bilinear(jx, jg)),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- LGAG gate -------------------------------------------------------------------
+
+def _lgag_inputs(C, seed):
+    rng = np.random.default_rng(seed)
+    C2 = C // 2
+    convs = [(rng.standard_normal((k, k, 2, C2)) * 0.2,
+              rng.standard_normal(C2) * 0.1) for k in (1, 3, 5, 1, 3, 5)]
+    bn = lambda n: dict(scale=1 + rng.standard_normal(n) * 0.1,
+                        bias=rng.standard_normal(n) * 0.1,
+                        mean=rng.standard_normal(n) * 0.1,
+                        var=1 + rng.random(n) * 0.3)
+    return dict(convs=convs, bn=bn(C2), psi_w=rng.standard_normal(
+        (1, 1, C2, 1)) * 0.3, psi_b=rng.standard_normal(1) * 0.1,
+        psi_bn=bn(1), g=rng.standard_normal((2, 6, 9, C)),
+        x=rng.standard_normal((2, 6, 9, C)))
+
+
+def _lgag_args(a, i, dtype="float32"):
+    """Argument list of lgag_gate_eval for framework i (0 jax, 1 torch)."""
+    c = lambda v, dt="float32": _both(v, dt)[i]
+    return [c(a["g"], dtype), c(a["x"], dtype),
+            [(c(k), c(b)) for k, b in a["convs"]],
+            {n: c(v) for n, v in a["bn"].items()}, c(a["psi_w"]),
+            c(a["psi_b"]), {n: c(v) for n, v in a["psi_bn"].items()}]
+
+
+@pytest.mark.parametrize("C", [16, 24])
+def test_lgag_gate_eval_matches_jax(C):
+    a = _lgag_inputs(C, seed=C)
+    want = jlgag(*_lgag_args(a, 0))
+    got = lgag_gate_eval(*_lgag_args(a, 1))
+    np.testing.assert_allclose(got.numpy(), _f32(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_lgag_gate_eval_bf16_matches_jax():
+    a = _lgag_inputs(16, seed=5)
+    want = jlgag(*_lgag_args(a, 0, "bfloat16"))
+    got = lgag_gate_eval(*_lgag_args(a, 1, "bfloat16"))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["bfloat16"])
+
+
+# --- GELU and zoom ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_matches_jax(dtype):
+    x = np.linspace(-6.0, 6.0, 4001)
+    jx, tx = _both(x, dtype)
+    got = gelu(tx)
+    assert got.dtype == TDT[dtype]
+    # bf16: both evaluate the polynomial in bf16; rounding points differ
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=1e-2)
+    np.testing.assert_allclose(_f32(got), _f32(jgelu(jx)), **tol)
+
+
+@pytest.mark.parametrize("shape,out", [((2, 30, 40), (64, 48)),
+                                       ((3, 80, 80), (64, 64))])
+def test_zoom_slices_match_jax(shape, out):
+    rng = np.random.default_rng(0)
+    v = rng.random(shape).astype(np.float32)
+    np.testing.assert_allclose(zoom_slices(torch.from_numpy(v), out).numpy(),
+                               np.asarray(jzoom(jnp.asarray(v), out)),
+                               rtol=1e-5, atol=1e-5)
+    lab = rng.integers(0, 9, shape).astype(np.int64)
+    np.testing.assert_array_equal(
+        zoom_slices_nearest(torch.from_numpy(lab), out).numpy(),
+        np.asarray(jzoom_nearest(jnp.asarray(lab), out)))
+
+
+# --- dispatch and packaging -------------------------------------------------------
+
+def test_wrappers_refuse_devices_without_kernels():
+    """A tensor that is neither on the CPU nor on a CUDA card raises: the
+    plain version runs only for CPU tensors."""
+    x = torch.empty((1, 4, 4, 8), device="meta")
+    grid = torch.empty((1, 8, 8, 4, 2), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dysample_grid_sample(x, grid)
+    with pytest.raises(ValueError, match="no kernel"):
+        lgag_gate(x, x, torch.empty((5, 5, 2, 4)), *[torch.empty(4)] * 3,
+                  torch.empty(3))
+
+
+def test_ffn_gemm_rejects_dtype_pairs_the_kernel_lacks():
+    a = torch.zeros((4, 8), dtype=torch.bfloat16)
+    w = torch.zeros((8, 2), dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        ffn_gemm(a, w, torch.zeros(2), torch.bfloat16)
+
+
+def test_build_sources_and_hash():
+    names = sorted(p.name for p in _build.sources())
+    assert names == ["cffn.cu", "common.cuh", "grid_sample.cu", "lgag.cu",
+                     "quad_scan_ln.cu"]
+    assert _build.source_hash() == _build.source_hash()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, ceigm_unet_tpu_torch, ceigm_unet_tpu_torch.models, "
+            "ceigm_unet_tpu_torch.eval.volume, ceigm_unet_tpu_torch.entry, "
+            "ceigm_unet_tpu_torch.convert.jax_import; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'ceigm_unet_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
