@@ -21,7 +21,7 @@ from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                                 bilinear_upsample,
                                                 channel_shuffle)
 from ceigm_unet_tpu_torch.ops.grid_sample import dysample_grid_sample
-from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate_eval
+from ceigm_unet_tpu_torch.ops.tapconv import lgag_fold, lgag_gate
 
 
 def _bn_dict(bn: BatchNorm2d):
@@ -44,16 +44,20 @@ class LGAG(nn.Module):
         self.bn = BatchNorm2d(f_int)
         self.psi = nn.Sequential(Conv2d(f_int, 1, 1), BatchNorm2d(1))
 
+    def folded(self):
+        """The eval-mode fold of :func:`lgag_fold`: weights only."""
+        convs = [(m.weight.permute(2, 3, 1, 0), m.bias) for m in (
+            self.W_g_1, self.W_g_3, self.W_g_5, self.W_x_1, self.W_x_3,
+            self.W_x_5)]
+        return lgag_fold(convs, _bn_dict(self.bn),
+                         self.psi[0].weight.permute(2, 3, 1, 0),
+                         self.psi[0].bias, _bn_dict(self.psi[1]))
+
     def forward(self, g, x):
         if self.training:
             raise NotImplementedError(
                 "the port runs inference only: call model.eval()")
-        convs = [(m.weight.permute(2, 3, 1, 0), m.bias) for m in (
-            self.W_g_1, self.W_g_3, self.W_g_5, self.W_x_1, self.W_x_3,
-            self.W_x_5)]
-        return lgag_gate_eval(g, x, convs, _bn_dict(self.bn),
-                              self.psi[0].weight.permute(2, 3, 1, 0),
-                              self.psi[0].bias, _bn_dict(self.psi[1]))
+        return lgag_gate(g, x, *self.folded())
 
 
 class MultiScaleCAB(nn.Module):

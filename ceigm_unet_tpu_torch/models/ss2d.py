@@ -56,41 +56,51 @@ class QuadGroupSS2D(nn.Module):
         return [getattr(self, f"mamba_g{k + 1}")
                 for k in range(len(self.DIRECTIONS))]
 
+    def fused_weights(self, dt: torch.dtype):
+        """The tensors the forward derives from the weights alone: the
+        block-diagonal projections and the depthwise conv in ``dt``, and the
+        scan's (K, D) parameters (A, dt bias, D, LN scale, LN bias) in fp32.
+        """
+        gs = self.groups()
+        D = gs[0].d_inner
+        bd = lambda ws: torch.block_diag(*ws).to(dt)
+        w_in = [g.in_proj.weight for g in gs]                  # (2D, dg)
+        w_xz = torch.cat([bd([w[:D].t() for w in w_in]),
+                          bd([w[D:].t() for w in w_in])], dim=1)
+        stack = lambda ps: torch.stack([p.reshape(D) for p in ps]).float()
+        return dict(
+            w_xz=w_xz,
+            conv_w=torch.cat([g.conv2d.weight for g in gs]).to(dt),
+            conv_b=torch.cat([g.conv2d.bias for g in gs]).to(dt),
+            w_x=bd([g.x_proj_weight[0].t() for g in gs]),
+            w_dt=bd([g.dt_projs_weight[0].t() for g in gs]),
+            w_out=bd([g.out_proj.weight.t() for g in gs]),
+            scan=(-torch.exp(stack([g.A_logs for g in gs])),
+                  stack([g.dt_projs_bias for g in gs]),
+                  stack([g.Ds for g in gs]),
+                  stack([g.out_norm.weight for g in gs]),
+                  stack([g.out_norm.bias for g in gs])))
+
     def scan_groups(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         L = H * W
         gs = self.groups()
         K, D, R = len(gs), gs[0].d_inner, gs[0].dt_rank
         Din = K * D
-        dt = x.dtype
-        bd = lambda ws: torch.block_diag(*ws).to(dt)
-        w_in = [g.in_proj.weight for g in gs]                  # (2D, dg)
-        w_xz = torch.cat([bd([w[:D].t() for w in w_in]),
-                          bd([w[D:].t() for w in w_in])], dim=1)
-        xz = x.reshape(B * L, C) @ w_xz                        # (BL, 2Din)
+        fw = self.fused_weights(x.dtype)
+        xz = x.reshape(B * L, C) @ fw["w_xz"]                  # (BL, 2Din)
         z = F.silu(xz[:, Din:])
-        conv_w = torch.cat([g.conv2d.weight for g in gs]).to(dt)
-        conv_b = torch.cat([g.conv2d.bias for g in gs]).to(dt)
         xc = F.conv2d(xz[:, :Din].reshape(B, H, W, Din).permute(0, 3, 1, 2),
-                      conv_w, conv_b, padding=1, groups=Din)
+                      fw["conv_w"], fw["conv_b"], padding=1, groups=Din)
         xc = F.silu(xc).permute(0, 2, 3, 1).reshape(B * L, Din)
-        x_dbl = (xc @ bd([g.x_proj_weight[0].t() for g in gs])).view(
-            B, L, K, R + 2)
+        x_dbl = (xc @ fw["w_x"]).view(B, L, K, R + 2)
         dts = x_dbl[..., :R].reshape(B * L, K * R)
-        dtv = (dts @ bd([g.dt_projs_weight[0].t() for g in gs])).view(
-            B, L, K, D)
-        stack = lambda ps: torch.stack([p.reshape(D) for p in ps]).float()
+        dtv = (dts @ fw["w_dt"]).view(B, L, K, D)
         y = quad_scan_ln_cat(
             xc.view(B, L, K, D).permute(0, 2, 1, 3), dtv.permute(0, 2, 1, 3),
             x_dbl[..., R].permute(0, 2, 1), x_dbl[..., R + 1].permute(0, 2, 1),
-            -torch.exp(stack([g.A_logs for g in gs])),
-            stack([g.dt_projs_bias for g in gs]),
-            stack([g.Ds for g in gs]),
-            stack([g.out_norm.weight for g in gs]),
-            stack([g.out_norm.bias for g in gs]),
-            H, W, self.DIRECTIONS)                             # (B, L, Din)
-        out = (y.view(B * L, Din) * z) @ bd([g.out_proj.weight.t()
-                                             for g in gs])
+            *fw["scan"], H, W, self.DIRECTIONS)                # (B, L, Din)
+        out = (y.view(B * L, Din) * z) @ fw["w_out"]
         return out.view(B, H, W, C)
 
     def forward(self, x):

@@ -11,14 +11,20 @@ exits non-zero without its last line:
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 224x224 forward gives it, at batch 2 in fp32 (TF32 off; rtol 1e-4,
    atol 1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|),
-   then kernel and plain version timed with CUDA events at batch 128 bf16;
+   and at batch 128 in bf16 (same bf16 tolerance; the batch of phase 6,
+   large enough that every grid-stride loop repeats), where kernel and
+   plain version are also timed with CUDA events;
 4. model: MSVM-UNet gm_tiny (9 classes, seeded random weights) at 224x224,
    batch 2, fp32 on the card against the same model on the CPU (rtol 1e-3,
    atol 1e-3 * max|CPU logits|), and the kernel launches of one forward;
+   then the bf16 forward on the card against the fp32 CPU logits (max abs
+   error <= 0.05 * max|CPU logits|, tests/test_torch_model.py's bound);
 5. serving (the main path): ``predict_volume`` in bf16, batch 32, on two
    seeded synthetic CT volumes of 40 x 512 x 512; launch counters are reset
    just before and read just after;
-6. throughput: the batch-128 bf16 224x224 forward, slices/s.
+6. throughput: the batch-128 bf16 224x224 forward, slices/s; its logits
+   are then held against the fp32 forward of the same batch on the card
+   (max abs error <= 0.05 * max|fp32 logits|).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -40,6 +46,7 @@ SEED = 0
 IMG = 224
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 5e-2)}
 MODEL_TOL = (1e-3, 1e-3)
+BF16_MODEL_TOL = 0.05          # max abs error / max|fp32 logits|
 
 
 def fail(msg: str):
@@ -199,27 +206,32 @@ def kernel_cases(dev):
 
 def phase_kernels(dev, gpu):
     results = {}
+    bf16 = torch.bfloat16
     for name, (route, source, replaces, cases) in kernel_cases(dev).items():
-        errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        errs = {(2, torch.float32): 0.0, (2, bf16): 0.0, (128, bf16): 0.0}
         ms = plain_ms = 0.0
         for tag, calls, make in cases:
-            for dt in errs:
-                kern, plain = make(2, dt)
-                errs[dt] = max(errs[dt], compare(kern(), plain(), dt))
-            kern, plain = make(128, torch.bfloat16)
+            for batch, dt in errs:
+                kern, plain = make(batch, dt)
+                err = compare(kern(), plain(), dt)
+                errs[batch, dt] = max(errs[batch, dt], err)
+            # kern, plain: the batch-128 bf16 pair, already checked
             k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 3)
             ms += calls * k_ms
             plain_ms += calls * p_ms
             log(f"kernel {name} [{tag}] x{calls}/forward: b128 bf16 "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms | {gpu}")
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max abs err {err:.3e}"
+                f" | {gpu}")
             del kern, plain
-        log(f"kernel {name}: max abs err fp32 {errs[torch.float32]:.3e} "
-            f"bf16 {errs[torch.bfloat16]:.3e}; per b128 bf16 forward "
+        log(f"kernel {name}: max abs err b2 fp32 "
+            f"{errs[2, torch.float32]:.3e}, b2 bf16 {errs[2, bf16]:.3e}, "
+            f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 forward "
             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
         results[name] = dict(
             name=name, route=route, source=source, replaces=replaces,
-            max_abs_err=errs[torch.float32],
-            max_abs_err_bf16=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms)
+            max_abs_err=errs[2, torch.float32],
+            max_abs_err_bf16=errs[2, bf16],
+            max_abs_err_bf16_b128=errs[128, bf16], ms=ms, plain_ms=plain_ms)
     torch.cuda.empty_cache()
     return results
 
@@ -267,13 +279,35 @@ def phase_model(dev):
     log(f"model gm_tiny 224x224 b2 fp32: card vs CPU max abs err {err:.3e} "
         f"(max|logit| {scale:.3e}, tol rtol {rtol} atol {atol}*max); "
         f"launches {dict(_build.launch_counts)}; CPU forward {cpu_s:.1f} s")
+    model.dtype = torch.bfloat16
+    with torch.no_grad():
+        got = model(x.to(dev))
+    if got.dtype != torch.bfloat16:
+        fail(f"bf16 forward returned {got.dtype} logits")
+    bf_err = check_bf16(got, want, "gm_tiny b2 bf16 logits on the card vs "
+                        "fp32 on the CPU")
+    log(f"model gm_tiny 224x224 b2 bf16: card vs fp32 CPU max abs err "
+        f"{bf_err:.3e} (max|logit| {scale:.3e}, tol {BF16_MODEL_TOL}*max)")
     return model
+
+
+def check_bf16(got, want, what: str) -> float:
+    """Max abs error of bf16 logits against fp32 ones; fails past
+    BF16_MODEL_TOL * max|want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{what}: {tuple(got.shape)} not finite or wrong shape")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > BF16_MODEL_TOL * scale:
+        fail(f"{what}: max abs err {err:.3e} > {BF16_MODEL_TOL} * "
+             f"max|fp32| {scale:.3e}")
+    return err
 
 
 def phase_serving(model, dev, gpu):
     from ceigm_unet_tpu_torch.eval.volume import predict_volume
     from ceigm_unet_tpu_torch.ops import _build
-    model.dtype = torch.bfloat16
     rng = np.random.default_rng(SEED)
     volumes = []
     for _ in range(2):
@@ -299,7 +333,8 @@ def phase_serving(model, dev, gpu):
 
 
 def phase_throughput(model, dev, gpu):
-    x = torch.randn((128, IMG, IMG, 1), device=dev)
+    x = torch.randn((128, IMG, IMG, 1), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED + 2))
     ts = []
     with torch.no_grad():
         for i in range(13):
@@ -308,17 +343,23 @@ def phase_throughput(model, dev, gpu):
             if i == 3:
                 torch.cuda.reset_peak_memory_stats()
             start.record()
-            model(x)
+            logits = model(x)
             end.record()
             end.synchronize()
             if i >= 3:
                 ts.append(start.elapsed_time(end))
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        model.dtype = torch.float32
+        want = model(x)
+        model.dtype = torch.bfloat16
+    err = check_bf16(logits, want, "b128 bf16 logits vs the fp32 forward")
     med = statistics.median(ts)
     spread = (max(ts) - min(ts)) / (2 * med)
-    mem = torch.cuda.max_memory_allocated() / 2**30
     log(f"throughput b128 224x224 bf16: {128e3 / med:.2f} slices/s, median "
         f"{med:.3f} ms over {len(ts)} runs, spread +-{100 * spread:.2f}%, "
-        f"max memory {mem:.2f} GiB | {gpu}")
+        f"max memory {mem:.2f} GiB; logits vs fp32 on the card max abs err "
+        f"{err:.3e} (max|logit| {want.abs().max().item():.3e}, tol "
+        f"{BF16_MODEL_TOL}*max) | {gpu}")
 
 
 def main() -> int:

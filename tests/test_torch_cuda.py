@@ -95,17 +95,19 @@ def test_cffn_kernels(dev, HWC, dtype, tap_all):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("HWC", [(7, 7, 448), (28, 28, 128)])
+# batch 32 at 28->56 (12.8M outputs) repeats the kernel's grid-stride loop
+@pytest.mark.parametrize("BHWC", [(2, 7, 7, 448), (2, 28, 28, 128),
+                                  (32, 28, 28, 128)])
 @pytest.mark.parametrize("offset_scale", [0.1, 3.0])
-def test_grid_sample_kernel(dev, HWC, dtype, offset_scale):
-    H, W, C = HWC
+def test_grid_sample_kernel(dev, BHWC, dtype, offset_scale):
+    B, H, W, C = BHWC
     g = torch.Generator().manual_seed(C)
-    x = _rand(g, (2, H, W, C), dev, 1.0, DT[dtype])
+    x = _rand(g, (B, H, W, C), dev, 1.0, DT[dtype])
     base = torch.stack(torch.meshgrid(
         (torch.arange(2 * H) + 0.5) / H - 1, (torch.arange(2 * W) + 0.5) / W
         - 1, indexing="ij")[::-1], dim=-1)                  # (2H, 2W, 2)
     grid = base[None, :, :, None, :].to(dev) + _rand(
-        g, (2, 2 * H, 2 * W, 4, 2), dev, offset_scale / max(H, W))
+        g, (B, 2 * H, 2 * W, 4, 2), dev, offset_scale / max(H, W))
     _close(dysample_grid_sample(x, grid), dysample_grid_sample_ref(x, grid),
            dtype)
 

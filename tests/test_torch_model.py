@@ -53,7 +53,8 @@ def _perturb(tree, rng):
 
 def _init(module, seed, *args, **kw):
     rng = np.random.default_rng(seed)
-    v = _numpy_tree(module.init(jax.random.PRNGKey(seed), *args, **kw))
+    v = _numpy_tree(jax.jit(module.init)(jax.random.PRNGKey(seed), *args,
+                                         **kw))
     return {k: _perturb(t, rng) for k, t in v.items()}
 
 
@@ -73,7 +74,7 @@ def test_quad_group_ss2d_matches_jax():
         np.float32)
     jm = JQuadGroupSS2D(dim=32, scan_backend="assoc")
     v = _init(jm, 0, jnp.asarray(x))
-    want = jm.apply(v, jnp.asarray(x))
+    want = jax.jit(jm.apply)(v, jnp.asarray(x))
     m = _port(QuadGroupSS2D(32), jax_import.quad_ss2d(v["params"]))
     with torch.no_grad():
         got = m(_t(x))
@@ -85,7 +86,7 @@ def test_custom_ffn_matches_jax():
         np.float32)
     jm = JCustomFfn(hidden=64)
     v = _init(jm, 1, jnp.asarray(x))
-    want = jm.apply(v, jnp.asarray(x))
+    want = jax.jit(jm.apply)(v, jnp.asarray(x))
     m = _port(CustomFfn(16, 64), jax_import.custom_ffn(v["params"]))
     with torch.no_grad():
         got = m(_t(x))
@@ -100,7 +101,7 @@ def test_dysample_matches_jax():
     # DySample-sized learned offsets (a trained net's are O(1e-2) px)
     v["params"]["offset1"]["kernel"] = np.random.default_rng(3).standard_normal(
         v["params"]["offset1"]["kernel"].shape).astype(np.float32) * 0.05
-    want = jm.apply(v, jnp.asarray(x))
+    want = jax.jit(jm.apply)(v, jnp.asarray(x))
     m = _port(DySample(32, 16), jax_import.dysample(v["params"],
                                                     v["batch_stats"]))
     with torch.no_grad():
@@ -115,7 +116,7 @@ def test_lgag_eval_matches_jax():
     x = rng.standard_normal((2, 6, 9, 16)).astype(np.float32)
     jm = jemcad.LGAG(f_int=8, groups=8)
     v = _init(jm, 4, jnp.asarray(g), jnp.asarray(x))
-    want = jm.apply(v, jnp.asarray(g), jnp.asarray(x))     # XLA path on CPU
+    want = jax.jit(jm.apply)(v, jnp.asarray(g), jnp.asarray(x))  # XLA path
     m = _port(LGAG(8), jax_import.lgag(v["params"], v["batch_stats"]))
     with torch.no_grad():
         got = m(_t(g), _t(x))

@@ -5,8 +5,10 @@
 Builds the seeded gm_tiny model (224x224, 9 classes, bf16), warms up, then
 traces 3 batch-128 forwards with torch.profiler. Prints the wall time per forward, the
 summed device-kernel time per forward, the device idle share
-(1 - kernel time / wall time), and the kernels by device time; with --out,
-writes the table and a chrome trace there. Imports no JAX.
+(1 - kernel time / wall time), the kernels by device time, and the wall
+time of the tensors the forward rebuilds from the weights alone on every
+call (QuadGroupSS2D.fused_weights, the CustomFfn composite, the LGAG fold);
+with --out, writes the table and a chrome trace there. Imports no JAX.
 """
 from __future__ import annotations
 
@@ -20,6 +22,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+
+def derived_weights(model) -> None:
+    """Build every tensor the forward derives from the weights alone."""
+    from ceigm_unet_tpu_torch.models.emcad import LGAG
+    from ceigm_unet_tpu_torch.models.layers import CustomFfn
+    from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+    for m in model.modules():
+        if isinstance(m, QuadGroupSS2D):
+            m.fused_weights(model.dtype)
+        elif isinstance(m, CustomFfn):
+            m.custom.composite(torch.float32)
+        elif isinstance(m, LGAG):
+            m.folded()
 
 
 def main() -> int:
@@ -38,7 +54,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     model = build_model(dtype=torch.bfloat16, device="cuda")
-    x = torch.randn((batch, 224, 224, 1), device="cuda")
+    x = torch.randn((batch, 224, 224, 1), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
     with torch.no_grad():
         for _ in range(3):
             model(x)
@@ -50,6 +67,15 @@ def main() -> int:
                 model(x)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / iters
+        bare = {}
+        for name, fn in (("forward", lambda: model(x)),
+                         ("derived", lambda: derived_weights(model))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            bare[name] = (time.perf_counter() - t0) / 5
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_time = lambda e: getattr(e, "device_time_total",
@@ -60,6 +86,10 @@ def main() -> int:
              f"wall {wall * 1e3:.3f} ms/forward, device kernels "
              f"{kernel_ms:.3f} ms/forward, idle share "
              f"{max(0.0, 1 - kernel_ms / (wall * 1e3)):.3f}",
+             f"without the profiler: forward {bare['forward'] * 1e3:.3f} ms,"
+             f" of which the weight-derived tensors rebuilt on every call "
+             f"take {bare['derived'] * 1e3:.3f} ms alone (share "
+             f"{bare['derived'] / bare['forward']:.3f})",
              f"{'ms/forward':>10} {'share':>6} {'calls':>6}  kernel"]
     for e in events[:40]:
         ms = dev_time(e) / 1e3 / iters
