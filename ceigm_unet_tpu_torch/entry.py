@@ -1,13 +1,22 @@
-"""Entry point: the flagship model (MSVM-UNet gm_tiny, 9-class Synapse,
+"""Entry points: the flagship model (MSVM-UNet gm_tiny, 9-class Synapse,
 224x224, 1 channel) and an example input, as ``__graft_entry__.entry`` gives
-them for the JAX package."""
+them for the JAX package; and its training step on a seeded synthetic
+batch, the step ``tools/bench_train.py`` runs for the JAX package."""
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Callable, Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 from ceigm_unet_tpu_torch.models import MSVMUNet, build_model
+from ceigm_unet_tpu_torch.train.config import SYNAPSE_CONFIG
+from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
+                                                  make_train_step,
+                                                  param_groups)
+
+# Synapse: 2211 training slices at batch 48, the last partial batch dropped
+SYNAPSE_STEPS_PER_EPOCH = 2211 // 48
 
 
 def entry(device: Union[str, torch.device] = "cuda",
@@ -18,3 +27,48 @@ def entry(device: Union[str, torch.device] = "cuda",
     model = build_model(num_classes=9, enc_name="gm_tiny", dtype=dtype,
                         device=device, seed=seed)
     return model, torch.zeros((1, 224, 224, 1), device=device)
+
+
+def synthetic_batch(batch: int, size: int = 224, num_classes: int = 9,
+                    seed: int = 0, device: Union[str, torch.device] = "cuda"
+                    ) -> Dict[str, torch.Tensor]:
+    """A seeded batch with blob-shaped labels: per slice one ellipse per
+    foreground class (later ones drawn over earlier ones) on background 0,
+    and an image whose intensity follows the label plus noise, normalised
+    as the data pipeline does ((x - 0.5) / 0.5). image (B, size, size, 1)
+    float32, label (B, size, size) int64."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / float(size)
+    label = np.zeros((batch, size, size), np.int64)
+    for i in range(batch):
+        for c in rng.permutation(np.arange(1, num_classes)):
+            cy, cx = rng.uniform(0.15, 0.85, 2)
+            ry, rx = rng.uniform(0.04, 0.18, 2)
+            label[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1] = c
+    image = label / float(num_classes) + rng.normal(0.0, 0.1, label.shape)
+    image = ((image - 0.5) / 0.5).astype(np.float32)[..., None]
+    return {"image": torch.from_numpy(image).to(device),
+            "label": torch.from_numpy(label).to(device)}
+
+
+def train_entry(device: Union[str, torch.device] = "cuda",
+                dtype: torch.dtype = torch.float32, batch: int = 48,
+                seed: int = 0
+                ) -> Tuple[MSVMUNet, Callable, Dict[str, torch.Tensor]]:
+    """(model, step, batch): the seeded gm_tiny model in training mode on
+    ``device`` computing in ``dtype`` (parameters fp32), its training step
+    with the Synapse recipe (AdamW 5e-4 / wd 1e-3, per-epoch cosine to 1e-6
+    over 300 epochs, DiceCE 0.4/0.6), and one seeded synthetic batch.
+    ``step(batch, freeze_encoder, generator)`` returns {"loss"}; the
+    generator draws the decoder's stochastic-depth masks."""
+    cfg = SYNAPSE_CONFIG
+    model = build_model(num_classes=cfg.num_classes, enc_name=cfg.enc_name,
+                        dtype=dtype, device=device, seed=seed).train()
+    optimizer = make_optimizer(param_groups(model), cfg.weight_decay)
+    step = make_train_step(
+        model, optimizer,
+        cosine_lr(cfg.lr, cfg.eta_min, cfg.max_epochs,
+                  SYNAPSE_STEPS_PER_EPOCH),
+        ce_weight=cfg.ce_weight, dc_weight=cfg.dc_weight)
+    return model, step, synthetic_batch(batch, cfg.img_size,
+                                        cfg.num_classes, seed, device)

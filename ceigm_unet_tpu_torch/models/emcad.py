@@ -1,11 +1,12 @@
-"""EMCAD decoder (NHWC), inference.
+"""EMCAD decoder (NHWC).
 
 Counterpart of ``ceigm_unet_tpu/models/emcad.py``, with its dataflow and
 reference quirks: per scale (coarse -> fine) SplitChannelsOddEven ->
 ParallelAttentionFusion -> DySample 2x (+ EUCB pointwise) -> LGAG gate on
 the skip (both gate paths read g) -> add -> Front; then a 1x1 head and a 4x
 bilinear upsample, with logits in the compute dtype. Module names follow
-the reference torch decoder.
+the reference torch decoder. In training the Front blocks' stochastic depth
+runs at linspace(drop_path_rate, 0, 7) and BatchNorm uses batch statistics.
 """
 from __future__ import annotations
 
@@ -30,10 +31,12 @@ def _bn_dict(bn: BatchNorm2d):
 
 
 class LGAG(nn.Module):
-    """Large-kernel grouped attention gate, eval mode, through the fused op
-    :func:`lgag_gate_eval`: six grouped 2-in/1-out convs (k 1/3/5, both
-    branches read g), one shared BN, ReLU, psi 1x1 conv + BN, sigmoid,
-    x * psi."""
+    """Large-kernel grouped attention gate: six grouped 2-in/1-out convs
+    (k 1/3/5, both branches read g), one shared BN applied to both branch
+    sums, ReLU, psi 1x1 conv + BN, sigmoid, x * psi. Eval runs the fused op
+    :func:`lgag_gate` on the folded weights; training runs the unfolded
+    form with batch statistics, updating the shared BN's running statistics
+    twice per forward (g branch, then x branch), as the JAX package does."""
 
     def __init__(self, f_int: int):
         super().__init__()
@@ -54,10 +57,14 @@ class LGAG(nn.Module):
                          self.psi[0].bias, _bn_dict(self.psi[1]))
 
     def forward(self, g, x):
-        if self.training:
-            raise NotImplementedError(
-                "the port runs inference only: call model.eval()")
-        return lgag_gate(g, x, *self.folded())
+        if not self.training:
+            return lgag_gate(g, x, *self.folded())
+        gs = self.bn.forward_fp32(self.W_g_1(g) + self.W_g_3(g)
+                                  + self.W_g_5(g))
+        xs = self.bn.forward_fp32(self.W_x_1(g) + self.W_x_3(g)
+                                  + self.W_x_5(g))
+        psi = self.psi[0](torch.relu(gs + xs).to(g.dtype))
+        return x * torch.sigmoid(self.psi[1].forward_fp32(psi)).to(x.dtype)
 
 
 class MultiScaleCAB(nn.Module):
@@ -215,9 +222,9 @@ class Front(nn.Module):
         super().__init__()
         self.cm_layer = _CmLayer(dim, drop_paths)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         for blk in self.cm_layer.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         return x
 
 
@@ -229,11 +236,11 @@ class EMCAD(nn.Module):
     FRONT_DEPTHS = (3, 2, 2)
 
     def __init__(self, channels: Sequence[int] = (448, 348, 128, 64),
-                 num_classes: int = 9):
+                 num_classes: int = 9, drop_path_rate: float = 0.2):
         super().__init__()
         ch = list(channels)
-        # stochastic depth 0.2 -> 0 over the 7 Front blocks (train only)
-        dpr = np.linspace(0.2, 0.0, sum(self.FRONT_DEPTHS))
+        # stochastic depth rate -> 0 over the 7 Front blocks (train only)
+        dpr = np.linspace(drop_path_rate, 0.0, sum(self.FRONT_DEPTHS))
         starts = np.cumsum([0, *self.FRONT_DEPTHS])
         for idx, c in zip((4, 3, 2, 1), ch):
             self.add_module(f"cc{idx}", SplitChannelsOddEven(c))
@@ -249,10 +256,11 @@ class EMCAD(nn.Module):
         c1, s1 = getattr(self, f"cc{idx}")(d)
         return getattr(self, f"para{idx}")(c1, s1)
 
-    def forward(self, feats):
+    def forward(self, feats, generator=None):
         d = self._mscam(feats[0], 4)
         for i, idx in enumerate((3, 2, 1)):
             d = getattr(self, f"eucb{idx}")(d)
             x = getattr(self, f"lgag{idx}")(d, feats[i + 1])
-            d = self._mscam(getattr(self, f"f{i + 1}")(d + x), idx)
+            d = self._mscam(getattr(self, f"f{i + 1}")(d + x, generator),
+                            idx)
         return bilinear_upsample(self.out_head1(d), 4)

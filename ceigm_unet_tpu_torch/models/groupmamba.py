@@ -53,9 +53,9 @@ class BlockMamba(nn.Module):
         self.mlp = (CustomFfn if use_custom_ffn else Pvt2Ffn)(dim, hidden)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x):
-        x = x + self.drop_path1(self.attn(x))
-        return x + self.drop_path2(self.mlp(self.norm2(x)))
+    def forward(self, x, generator=None):
+        x = x + self.drop_path1(self.attn(x), generator)
+        return x + self.drop_path2(self.mlp(self.norm2(x)), generator)
 
 
 class Stem(nn.Module):
@@ -122,12 +122,12 @@ class GroupMamba(nn.Module):
                 BlockMamba(dim, ratio, norm_eps=1e-6) for _ in range(depth)))
             self.add_module(f"norm{i + 1}", LayerNorm(dim, eps=1e-6))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         feats = []
         for i in range(len(self.depths)):
             x = getattr(self, f"patch_embed{i + 1}")(x)
             for blk in getattr(self, f"block{i + 1}"):
-                x = blk(x)
+                x = blk(x, generator)
             x = getattr(self, f"norm{i + 1}")(x)
             feats.append(x)
         return feats

@@ -39,31 +39,58 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm over the last (channel) axis of NHWC input."""
+    """BatchNorm over the last (channel) axis of NHWC input, with flax's
+    semantics (``nn.BatchNorm(momentum=0.9)`` as the JAX package uses it):
+    in training, the batch mean and the biased variance over (B, H, W) in
+    fp32, and running statistics updated as 0.9 * old + 0.1 * batch with
+    that biased variance (torch's own update uses the unbiased one)."""
+
+    MOMENTUM = 0.9
 
     def forward(self, x):
+        return self.forward_fp32(x).to(x.dtype)
+
+    def forward_fp32(self, x):
+        """The normalised x in fp32 (LGAG adds two of them before it
+        rounds to the compute dtype)."""
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "the port runs inference only: call model.eval()")
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * inv * self.weight + self.bias
-        return y.to(x.dtype)
+            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; the identity in eval."""
+    """Per-sample stochastic depth; the identity in eval. In training the
+    keep masks (one per sample, kept with probability 1 - rate, kept
+    samples scaled by 1/keep) come from an explicit ``torch.Generator``:
+    ``self.generator`` if set, else the one passed to ``forward``. There is
+    no draw from torch's global generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator = None
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if not self.training or self.rate == 0.0:
             return x
+        gen = self.generator if self.generator is not None else generator
+        if gen is None:
+            raise ValueError("DropPath in training needs a torch.Generator "
+                             "(set .generator or pass generator=)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = torch.rand(shape, generator=gen, device=gen.device) < keep
+        return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
 class DwConv(nn.Module):

@@ -1,15 +1,17 @@
-"""MSVM-UNet: GroupMamba encoder + EMCAD decoder, inference.
+"""MSVM-UNet: GroupMamba encoder + EMCAD decoder.
 
 Counterpart of ``ceigm_unet_tpu/models/msvm_unet.py``. The model takes
 (B, H, W, 1|3) NHWC input, repeats a 1-channel input to 3 channels,
 computes in ``dtype`` and returns (B, H, W, classes) NHWC logits in
 ``dtype``. ``state_dict`` keys are the reference
-torch model's (``encoder.gm_encoder.*``, ``decoder.*``).
+torch model's (``encoder.gm_encoder.*``, ``decoder.*``). ``model.train()``
+selects training mode (batch-statistics BatchNorm, stochastic depth drawn
+from the generator passed to ``forward``).
 """
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -29,19 +31,24 @@ class _Encoder(nn.Module):
 
 class MSVMUNet(nn.Module):
     def __init__(self, num_classes: int = 9, enc_name: str = "gm_tiny",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 decoder_drop_path_rate: float = 0.2):
         super().__init__()
         cfg = GROUPMAMBA_CONFIGS[enc_name]
         self.dtype = dtype
         self.encoder = _Encoder(**cfg)
         self.decoder = EMCAD(channels=tuple(cfg["embed_dims"])[::-1],
-                             num_classes=num_classes)
+                             num_classes=num_classes,
+                             drop_path_rate=decoder_drop_path_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the stochastic-depth masks in training."""
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
-        feats = self.encoder.gm_encoder(x.to(self.dtype).contiguous())
-        return self.decoder(feats[::-1])
+        feats = self.encoder.gm_encoder(x.to(self.dtype).contiguous(),
+                                        generator)
+        return self.decoder(feats[::-1], generator)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
@@ -88,11 +95,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
                 dtype: torch.dtype = torch.float32,
-                device: Union[str, torch.device] = "cpu",
-                seed: int = 0) -> MSVMUNet:
+                device: Union[str, torch.device] = "cuda",
+                seed: int = 0,
+                decoder_drop_path_rate: float = 0.2) -> MSVMUNet:
     """Flagship factory: random weights from a CPU ``torch.Generator``
-    seeded with ``seed``, in eval mode, on ``device``. Parameters stay fp32;
-    ``dtype`` is the compute dtype."""
-    model = MSVMUNet(num_classes=num_classes, enc_name=enc_name, dtype=dtype)
+    seeded with ``seed``, in eval mode, on ``device`` (the card unless the
+    caller asks for ``"cpu"``). Parameters stay fp32; ``dtype`` is the
+    compute dtype. ``decoder_drop_path_rate`` is the decoder's stochastic
+    depth (the encoder's is 0, as in the reference)."""
+    model = MSVMUNet(num_classes=num_classes, enc_name=enc_name, dtype=dtype,
+                     decoder_drop_path_rate=decoder_drop_path_rate)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -1,10 +1,11 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded through ``ctypes``. The
-build happens at first use, into ``ceigm_unet_tpu_torch/_build/``, keyed by
-a hash of the sources, so a checkout builds everything it needs from its own
-files. A failed build raises; nothing falls back.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, loaded through ``ctypes``. The build happens at first
+use, into ``ceigm_unet_tpu_torch/_build/``, keyed by a hash of the sources,
+so a checkout builds everything it needs from its own files. A failed build
+raises; nothing falls back.
 
 Every C entry point launches exactly one kernel on the stream it is given
 and returns ``cudaGetLastError()``. :func:`launch` checks that code and adds
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -27,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _L = ctypes.c_longlong
@@ -40,6 +42,7 @@ SIGNATURES = {
     "cffn_inception7": [_P] * 4 + [_I] * 5 + [_P],
     "dysample_grid_sample": [_P] * 3 + [_I] * 8 + [_P],
     "lgag_gate": [_P] * 8 + [_I] * 5 + [_P],
+    "scan2d": [_P] * 3 + [_I] * 10 + [_P],
 }
 
 # launches per C entry point since the last reset_launch_counts()
@@ -78,14 +81,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    obj_dir = BUILD_DIR / f"obj_{lib.stem}_{os.getpid()}"
+    obj_dir.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+               str(obj_dir / (src.stem + ".o"))]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    # wait for every compile before raising, so none outlives the build
+    results = [(cmd, proc, proc.communicate()[1]) for cmd, proc in jobs]
+    for cmd, proc, err in results:
+        _check(cmd, proc.returncode, err)
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[cmd[-1] for cmd, _, _ in results]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (rc=%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
+    _check(cmd, proc.returncode, proc.stderr)
     os.replace(tmp, lib)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return lib
+
+
+def _check(cmd, returncode: int, err: str) -> None:
+    if returncode != 0:
+        raise RuntimeError("nvcc failed (rc=%d):\n%s\n%s" % (
+            returncode, " ".join(cmd), err[-8000:]))
 
 
 @functools.lru_cache(maxsize=1)
@@ -130,3 +152,12 @@ def check_cuda(*tensors: torch.Tensor) -> None:
         if t.device != dev:
             raise ValueError(f"kernel operand on {t.device}, the current "
                              f"device is {dev}")
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel whose output autograd could not trace back refuses inputs
+    that require grad (its differentiable caller runs it in no-grad mode)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward of its own; "
+                           f"call it under torch.no_grad() or through its "
+                           f"differentiable op")

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ceigm_unet_tpu_torch.ops import _build
 from ceigm_unet_tpu_torch.ops.activations import gelu
+from ceigm_unet_tpu_torch.ops.recompute import recompute_vjp
 
 
 def inception_composite(c: int, g: int, p3k, p5k, p7k, p3b, p5b, p7b,
@@ -80,6 +81,7 @@ def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
         return ffn_gemm_ref(a, w, bias, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"ffn_gemm: no kernel for {a.device}")
+    _build.check_no_grad("ffn_gemm", a, w, bias)
     ac, wc = a.contiguous(), w.contiguous()
     bf = bias.to(device=a.device, dtype=torch.float32).contiguous()
     _build.check_cuda(ac, wc, bf)
@@ -109,6 +111,7 @@ def dw3_gelu(h, dwk, dwb, H: int, W: int):
         return dw3_gelu_ref(h, dwk, dwb, H, W)
     if h.device.type != "cuda":
         raise ValueError(f"dw3_gelu: no kernel for {h.device}")
+    _build.check_no_grad("dw3_gelu", h, dwk, dwb)
     hc = h.contiguous()
     kf, bf = [t.to(device=h.device, dtype=torch.float32).reshape(
         -1, HID).contiguous() for t in (dwk, dwb)]
@@ -139,6 +142,7 @@ def inception7(q, inck, incb, H: int, W: int, n_id: int = 0):
         return inception7_ref(q, inck, incb, H, W, n_id)
     if q.device.type != "cuda":
         raise ValueError(f"inception7: no kernel for {q.device}")
+    _build.check_no_grad("inception7", q, inck, incb)
     qc = q.contiguous()
     kf, bf = [t.to(device=q.device, dtype=torch.float32).reshape(
         -1, HID).contiguous() for t in (inck, incb)]
@@ -148,6 +152,41 @@ def inception7(q, inck, incb, H: int, W: int, n_id: int = 0):
     _build.launch("cffn_inception7", p(qc), p(kf), p(bf), p(out),
                   M // (H * W), H, W, HID, n_id)
     return out
+
+
+def custom_ffn_fused_bwd(x, w1, b1, dwk, dwb, inck, incb, w2, b2, go,
+                         H: int, W: int, needs_grad=(True,) * 9):
+    """Grads of :func:`custom_ffn_fused` for cotangent go (B, H*W, C): the
+    vector-Jacobian product of :func:`custom_ffn_fused_ref`, recomputed.
+    One entry per tensor argument (None where ``needs_grad`` is False)."""
+    return recompute_vjp(
+        lambda *a: custom_ffn_fused_ref(*a, H, W),
+        (x, w1, b1, dwk, dwb, inck, incb, w2, b2), needs_grad, go)
+
+
+class CustomFfnFused(torch.autograd.Function):
+    """Autograd op of :func:`custom_ffn_fused`."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, dwk, dwb, inck, incb, w2, b2, H, W, n_tap):
+        ctx.save_for_backward(x, w1, b1, dwk, dwb, inck, incb, w2, b2)
+        ctx.hw = (H, W)
+        if x.device.type == "cpu":
+            return custom_ffn_fused_ref(x, w1, b1, dwk, dwb, inck, incb, w2,
+                                        b2, H, W, n_tap)
+        B, L, C = x.shape
+        HID = w1.shape[1]
+        dt = x.dtype
+        h = ffn_gemm(x.reshape(B * L, C), w1.to(dt), b1, torch.float32)
+        q = inception7(dw3_gelu(h, dwk, dwb, H, W), inck, incb, H, W,
+                       HID - n_tap if n_tap else 0)
+        return ffn_gemm(q, w2.to(dt), b2, dt).view(B, L, C)
+
+    @staticmethod
+    def backward(ctx, go):
+        grads = custom_ffn_fused_bwd(*ctx.saved_tensors, go, *ctx.hw,
+                                     needs_grad=ctx.needs_input_grad[:9])
+        return (*grads, None, None, None)
 
 
 def custom_ffn_fused(x, w1, b1, dwk, dwb, inck, incb, w2, b2, H: int,
@@ -164,11 +203,5 @@ def custom_ffn_fused(x, w1, b1, dwk, dwb, inck, incb, w2, b2, H: int,
         raise ValueError(f"custom_ffn_fused: x {tuple(x.shape)} w1 "
                          f"{tuple(w1.shape)} w2 {tuple(w2.shape)} H*W "
                          f"{H * W} n_tap {n_tap}")
-    if x.device.type == "cpu":
-        return custom_ffn_fused_ref(x, w1, b1, dwk, dwb, inck, incb, w2, b2,
-                                    H, W, n_tap)
-    dt = x.dtype
-    h = ffn_gemm(x.reshape(B * L, C), w1.to(dt), b1, torch.float32)
-    q = inception7(dw3_gelu(h, dwk, dwb, H, W), inck, incb, H, W,
-                   HID - n_tap if n_tap else 0)
-    return ffn_gemm(q, w2.to(dt), b2, dt).view(B, L, C)
+    return CustomFfnFused.apply(x, w1, b1, dwk, dwb, inck, incb, w2, b2, H,
+                                W, n_tap)

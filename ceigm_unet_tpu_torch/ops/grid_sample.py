@@ -5,13 +5,17 @@ Counterpart of ``ceigm_unet_tpu/ops/grid_sample.py``:
 :func:`dysample_grid_sample` the grouped DySample op (one grid per group of
 consecutive channels). For CUDA tensors the latter launches
 ``csrc/grid_sample.cu``, which computes the exact op; for CPU tensors it runs
-:func:`dysample_grid_sample_ref`.
+:func:`dysample_grid_sample_ref`. It is differentiable through
+:class:`DySampleGridSample`, whose backward is the vector-Jacobian product
+of the plain version (the JAX package's ``_gs_banded_groups_bwd``): a
+coordinate clamped at the border gets a zero gradient.
 """
 from __future__ import annotations
 
 import torch
 
 from ceigm_unet_tpu_torch.ops import _build
+from ceigm_unet_tpu_torch.ops.recompute import recompute_vjp
 
 
 def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -55,16 +59,8 @@ def dysample_grid_sample_ref(x: torch.Tensor,
         B, Ho, Wo, C)
 
 
-def dysample_grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """x (B, H, W, C), grid (B, Ho, Wo, g, 2): channel c is sampled with
-    grid[..., c // (C // g), :]. Returns (B, Ho, Wo, C) in x's dtype."""
+def _dysample_launch(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
-    if grid.dim() != 5 or grid.shape[0] != B or grid.shape[-1] != 2 \
-            or C % grid.shape[3] != 0:
-        raise ValueError(f"dysample_grid_sample: x {tuple(x.shape)} grid "
-                         f"{tuple(grid.shape)}")
-    if x.device.type == "cpu":
-        return dysample_grid_sample_ref(x, grid)
     if x.device.type != "cuda":
         raise ValueError(f"dysample_grid_sample: no kernel for {x.device}")
     Ho, Wo, g = grid.shape[1:4]
@@ -76,3 +72,32 @@ def dysample_grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     _build.launch("dysample_grid_sample", p(xc), p(gf), p(out), B, H, W, C,
                   Ho, Wo, g, _build.dtype_code(x))
     return out
+
+
+class DySampleGridSample(torch.autograd.Function):
+    """Autograd op of :func:`dysample_grid_sample`."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.save_for_backward(x, grid)
+        if x.device.type == "cpu":
+            return dysample_grid_sample_ref(x, grid)
+        return _dysample_launch(x, grid)
+
+    @staticmethod
+    def backward(ctx, go):
+        return recompute_vjp(dysample_grid_sample_ref, ctx.saved_tensors,
+                             ctx.needs_input_grad, go)
+
+
+def dysample_grid_sample(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C), grid (B, Ho, Wo, g, 2): channel c is sampled with
+    grid[..., c // (C // g), :]. Returns (B, Ho, Wo, C) in x's dtype."""
+    B, H, W, C = x.shape
+    if grid.dim() != 5 or grid.shape[0] != B or grid.shape[-1] != 2 \
+            or C % grid.shape[3] != 0:
+        raise ValueError(f"dysample_grid_sample: x {tuple(x.shape)} grid "
+                         f"{tuple(grid.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"dysample_grid_sample: no kernel for {x.device}")
+    return DySampleGridSample.apply(x, grid)

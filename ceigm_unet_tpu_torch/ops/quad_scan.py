@@ -1,4 +1,5 @@
-"""Quad-group selective scan (d_state = 1) fused with the group LayerNorm.
+"""Quad-group selective scan (d_state = 1) fused with the group LayerNorm,
+and its backward.
 
 Counterpart of ``ceigm_unet_tpu/ops/quad_scan.py`` ``sscan_quad_ln_cat``
 (and of its batch-last twin ``sscan_quad_ln_cat_bl``): for channel group k,
@@ -10,11 +11,17 @@ scanned over the H*W pixels in direction ``directions[k]`` (1 row-major,
 then a LayerNorm over the group's D channels of each pixel (eps 1e-5), the
 K groups lane-concatenated. Arithmetic is fp32; the output has u's dtype.
 
-:func:`quad_scan_ln_cat` launches ``csrc/quad_scan_ln.cu`` for CUDA tensors
-and runs :func:`quad_scan_ln_cat_ref` for CPU tensors.
+:func:`quad_scan_ln_cat` is the autograd op :class:`QuadScanLnCat`. Its
+forward launches ``csrc/quad_scan_ln.cu`` for CUDA tensors and runs
+:func:`quad_scan_ln_cat_ref` for CPU tensors. Its backward is the JAX
+package's recompute design (``_quad_ln_bwd_impl``): h again by
+:func:`scan2d`, the LayerNorm backward, then the scan's adjoint by
+:func:`scan2d_adjoint`; both launch ``csrc/scan2d.cu`` for CUDA tensors and
+run :func:`scan2d_ref` / :func:`scan2d_adjoint_ref` for CPU tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -51,6 +58,100 @@ def _doubling_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _orders(H: int, W: int, directions: Sequence[int],
+            device) -> torch.Tensor:
+    """(K, H*W) pixel index visited at each step, per group."""
+    return torch.stack([scan_order(H, W, d) for d in directions]).to(device)
+
+
+def scan2d_ref(a: torch.Tensor, b: torch.Tensor, H: int, W: int,
+               directions: Sequence[int]) -> torch.Tensor:
+    """Plain version of :func:`scan2d`."""
+    B, K, L, D = a.shape
+    idx = _orders(H, W, directions, a.device).view(1, K, L, 1).expand(
+        B, K, L, D)
+    h = _doubling_scan(torch.gather(a, 2, idx), torch.gather(b, 2, idx))
+    return torch.empty_like(h).scatter_(2, idx, h)
+
+
+def scan2d_adjoint_ref(a: torch.Tensor, gh: torch.Tensor, H: int, W: int,
+                       directions: Sequence[int]) -> torch.Tensor:
+    """Plain version of :func:`scan2d_adjoint`: the reversed walk, with a
+    taken one step behind."""
+    B, K, L, D = a.shape
+    idx = _orders(H, W, directions, a.device).flip(1).view(1, K, L, 1) \
+        .expand(B, K, L, D)
+    ar = torch.gather(a, 2, idx)
+    a_behind = torch.cat([torch.ones_like(ar[:, :, :1]), ar[:, :, :-1]], 2)
+    g = _doubling_scan(a_behind, torch.gather(gh, 2, idx))
+    return torch.empty_like(g).scatter_(2, idx, g)
+
+
+def _scan2d_call(a, b, H: int, W: int, directions: Sequence[int],
+                 adjoint: bool) -> torch.Tensor:
+    B, K, L, D = a.shape
+    what = "scan2d_adjoint" if adjoint else "scan2d"
+    if L != H * W or b.shape != a.shape or len(directions) != K:
+        raise ValueError(f"{what}: a {tuple(a.shape)} b {tuple(b.shape)} "
+                         f"H*W {H * W} directions {tuple(directions)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"{what}: takes float32, got {a.dtype}, {b.dtype}")
+    if a.device.type == "cpu":
+        ref = scan2d_adjoint_ref if adjoint else scan2d_ref
+        return ref(a, b, H, W, directions)
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {a.device}")
+    if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
+        raise ValueError(f"{what}: directions {directions}")
+    if D > MAX_D:
+        raise ValueError(f"{what}: the kernel takes D <= {MAX_D} channels "
+                         f"per group, got {D}")
+    ac, bc = a.contiguous(), b.contiguous()
+    _build.check_cuda(ac, bc)
+    out = torch.empty_like(ac)
+    dirs = [int(d) for d in directions] + [1] * (4 - K)
+    p = _build.ptr
+    _build.launch("scan2d", p(ac), p(bc), p(out), B, K, H, W, D, *dirs,
+                  int(adjoint))
+    return out
+
+
+def scan2d(a: torch.Tensor, b: torch.Tensor, H: int, W: int,
+           directions: Sequence[int]) -> torch.Tensor:
+    """h_t = a_t*h_{t-1} + b_t along each group's direction (the JAX
+    package's ``scan2d``, all K groups at once). a, b: (B, K, H*W, D) fp32
+    in row-major pixel order; h is returned in the same order."""
+    return _scan2d_call(a, b, H, W, directions, adjoint=False)
+
+
+def scan2d_adjoint(a: torch.Tensor, gh: torch.Tensor, H: int, W: int,
+                   directions: Sequence[int]) -> torch.Tensor:
+    """The adjoint of :func:`scan2d`: g_t = gh_t + a_{t+1}*g_{t+1}, t in
+    each group's direction order. Then da_t = g_t*h_{t-1} and db_t = g_t
+    (the JAX package's ``_scan2d_bwd``)."""
+    return _scan2d_call(a, gh, H, W, directions, adjoint=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _behind_index(H: int, W: int, directions: tuple, device) -> torch.Tensor:
+    """(K, H*W): for each pixel, the pixel its group's walk visits one step
+    before it; H*W (a zero row) for the first."""
+    order = _orders(H, W, directions, "cpu")
+    behind = torch.full_like(order, H * W)
+    behind.scatter_(1, order[:, 1:], order[:, :-1])
+    return behind.to(device)
+
+
+def _step_behind(h: torch.Tensor, H: int, W: int,
+                 directions: Sequence[int]) -> torch.Tensor:
+    """h_{t-1} at each pixel of (B, K, H*W, D) h, 0 at each walk's start."""
+    B, K, L, D = h.shape
+    hp = torch.cat([h, h.new_zeros(B, K, 1, D)], dim=2)
+    idx = _behind_index(H, W, tuple(int(d) for d in directions), h.device)
+    return torch.stack([hp[:, k].index_select(1, idx[k]) for k in range(K)],
+                       dim=1)
+
+
 def quad_scan_ln_cat_ref(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
                          H: int, W: int, directions: Sequence[int]):
     """Plain PyTorch version of :func:`quad_scan_ln_cat`."""
@@ -74,25 +175,9 @@ def quad_scan_ln_cat_ref(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
     return out.permute(0, 2, 1, 3).reshape(B, L, K * D).to(u.dtype)
 
 
-def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
-                     H: int, W: int, directions: Sequence[int]):
-    """u, dt: (B, K, H*W, D), any strides; Bs, Cs: (B, K, H*W) per-pixel
-    scalars, all of one dtype; A, bias, Dv, ln_scale, ln_bias: (K, D).
-    Returns the normalised activation (B, H*W, K*D) in u's dtype, pixel
-    order."""
+def _quad_scan_ln_launch(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
+                        H: int, W: int, directions: Sequence[int]):
     B, K, L, D = u.shape
-    if L != H * W or dt.shape != u.shape or Bs.shape != (B, K, L) \
-            or Cs.shape != (B, K, L) or len(directions) != K:
-        raise ValueError(f"quad_scan_ln_cat: shapes u {tuple(u.shape)} dt "
-                         f"{tuple(dt.shape)} Bs {tuple(Bs.shape)} Cs "
-                         f"{tuple(Cs.shape)} H*W {H * W} directions "
-                         f"{tuple(directions)}")
-    if not u.dtype == dt.dtype == Bs.dtype == Cs.dtype:
-        raise TypeError("quad_scan_ln_cat: u, dt, Bs and Cs must share a "
-                        "dtype")
-    if u.device.type == "cpu":
-        return quad_scan_ln_cat_ref(u, dt, Bs, Cs, A, bias, Dv, ln_scale,
-                                    ln_bias, H, W, directions)
     if u.device.type != "cuda":
         raise ValueError(f"quad_scan_ln_cat: no kernel for {u.device}")
     if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
@@ -111,3 +196,95 @@ def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
         p(out), *u.stride(), *dt.stride(), *Bs.stride(), *Cs.stride(),
         B, K, H, W, D, *dirs, _build.dtype_code(u))
     return out
+
+
+def quad_scan_ln_cat_bwd(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias, go,
+                         H: int, W: int, directions: Sequence[int]):
+    """Gradients of :func:`quad_scan_ln_cat` for the output cotangent go
+    (B, H*W, K*D): the JAX package's ``_quad_ln_bwd_impl``, formula for
+    formula, all K groups at once, in fp32. Returns the grads of (u, dt,
+    Bs, Cs, A, bias, Dv, ln_scale, ln_bias), each in its input's dtype and
+    shape."""
+    B, K, L, D = u.shape
+    prm = lambda t: t.float().reshape(1, K, 1, D)
+    mean = lambda t: t.mean(-1, keepdim=True)
+    uf = u.float()
+    Bf, Cf = Bs.float().unsqueeze(-1), Cs.float().unsqueeze(-1)
+    g = go.float().reshape(B, L, K, D).permute(0, 2, 1, 3)
+    Af, Dvf = prm(A), prm(Dv)
+
+    pre = dt.float() + prm(bias)
+    d = _softplus(pre)
+    a = torch.exp(d * Af)
+    h = scan2d(a, d * uf * Bf, H, W, directions)
+    y = Cf * h + Dvf * uf
+
+    mu = mean(y)
+    ir = torch.rsqrt(mean(y * y) - mu * mu + LN_EPS)
+    yn = (y - mu) * ir
+
+    # affine backward
+    dln_s = (g * yn).sum((0, 2))
+    dln_b = g.sum((0, 2))
+    dyn = g * prm(ln_scale)
+    dy = ir * (dyn - mean(dyn) - yn * mean(dyn * yn))
+
+    # y = C*h + D*u
+    dCs = (h * dy).sum(-1)
+    dDv = (uf * dy).sum((0, 2))
+    db = scan2d_adjoint(a, Cf * dy, H, W, directions)
+    da = db * _step_behind(h, H, W, directions)
+
+    dd = db * uf * Bf + (da * a) * Af
+    ddt = dd * torch.sigmoid(pre)
+    du = db * d * Bf + Dvf * dy
+    dBs = (db * d * uf).sum(-1)
+    dA = (da * a * d).sum((0, 2))
+    dbias = ddt.sum((0, 2))
+    cast = lambda gr, t: gr.reshape(t.shape).to(t.dtype)
+    return (cast(du, u), cast(ddt, dt), cast(dBs, Bs), cast(dCs, Cs),
+            cast(dA, A), cast(dbias, bias), cast(dDv, Dv),
+            cast(dln_s, ln_scale), cast(dln_b, ln_bias))
+
+
+class QuadScanLnCat(torch.autograd.Function):
+    """Autograd op of :func:`quad_scan_ln_cat`: saves its inputs, and
+    recomputes in the backward (:func:`quad_scan_ln_cat_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias, H, W,
+                directions):
+        ctx.save_for_backward(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias)
+        ctx.geometry = (H, W, tuple(int(d) for d in directions))
+        args = (u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias, H, W,
+                directions)
+        if u.device.type == "cpu":
+            return quad_scan_ln_cat_ref(*args)
+        return _quad_scan_ln_launch(*args)
+
+    @staticmethod
+    def backward(ctx, go):
+        grads = quad_scan_ln_cat_bwd(*ctx.saved_tensors, go, *ctx.geometry)
+        return (*grads, None, None, None)
+
+
+def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
+                     H: int, W: int, directions: Sequence[int]):
+    """u, dt: (B, K, H*W, D), any strides; Bs, Cs: (B, K, H*W) per-pixel
+    scalars, all of one dtype; A, bias, Dv, ln_scale, ln_bias: (K, D).
+    Returns the normalised activation (B, H*W, K*D) in u's dtype, pixel
+    order, differentiable in every tensor argument."""
+    B, K, L, D = u.shape
+    if L != H * W or dt.shape != u.shape or Bs.shape != (B, K, L) \
+            or Cs.shape != (B, K, L) or len(directions) != K:
+        raise ValueError(f"quad_scan_ln_cat: shapes u {tuple(u.shape)} dt "
+                         f"{tuple(dt.shape)} Bs {tuple(Bs.shape)} Cs "
+                         f"{tuple(Cs.shape)} H*W {H * W} directions "
+                         f"{tuple(directions)}")
+    if not u.dtype == dt.dtype == Bs.dtype == Cs.dtype:
+        raise TypeError("quad_scan_ln_cat: u, dt, Bs and Cs must share a "
+                        "dtype")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"quad_scan_ln_cat: no kernel for {u.device}")
+    return QuadScanLnCat.apply(u, dt, Bs, Cs, A, bias, Dv, ln_scale,
+                               ln_bias, H, W, tuple(directions))

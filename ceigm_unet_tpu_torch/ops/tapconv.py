@@ -5,7 +5,10 @@ same arguments. The host-side fold is the same: the six grouped 2-in/1-out
 convs (both branches read g) become one 5x5x2xC2 tap stack, and the shared
 BatchNorm and the psi BatchNorm become per-channel (a1, b1) and scalar
 (a2, c2) affines. :func:`lgag_gate` then launches ``csrc/lgag.cu`` for CUDA
-tensors and runs :func:`lgag_gate_ref` for CPU tensors.
+tensors and runs :func:`lgag_gate_ref` for CPU tensors. Training does not
+take this path (LGAG runs its unfolded form there, with batch statistics);
+the op's backward, for completeness, is the vector-Jacobian product of the
+plain version.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ceigm_unet_tpu_torch.ops import _build
+from ceigm_unet_tpu_torch.ops.recompute import recompute_vjp
 
 BN_EPS = 1e-5
 
@@ -53,18 +57,8 @@ def lgag_gate_ref(g, x, taps, a1, b1, psi_w, scalars):
     return (x.float() * psi).to(x.dtype)
 
 
-def lgag_gate(g, x, taps, a1, b1, psi_w, scalars):
-    """g, x (B, H, W, C) with C = 2*C2; folded parameters from
-    :func:`lgag_fold`. Returns x * psi in x's dtype."""
+def _lgag_launch(g, x, taps, a1, b1, psi_w, scalars):
     B, H, W, C = g.shape
-    C2 = C // 2
-    if x.shape != g.shape or C != 2 * C2 or tuple(taps.shape) != (5, 5, 2, C2):
-        raise ValueError(f"lgag_gate: g {tuple(g.shape)} x {tuple(x.shape)} "
-                         f"taps {tuple(taps.shape)}")
-    if g.dtype != x.dtype:
-        raise TypeError("lgag_gate: g and x must share a dtype")
-    if g.device.type == "cpu":
-        return lgag_gate_ref(g, x, taps, a1, b1, psi_w, scalars)
     if g.device.type != "cuda":
         raise ValueError(f"lgag_gate: no kernel for {g.device}")
     gc, xc = g.contiguous(), x.contiguous()
@@ -76,6 +70,37 @@ def lgag_gate(g, x, taps, a1, b1, psi_w, scalars):
     _build.launch("lgag_gate", p(gc), p(xc), *[p(t) for t in prm], p(out),
                   B, H, W, C, _build.dtype_code(x))
     return out
+
+
+class LgagGate(torch.autograd.Function):
+    """Autograd op of :func:`lgag_gate`."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        if args[0].device.type == "cpu":
+            return lgag_gate_ref(*args)
+        return _lgag_launch(*args)
+
+    @staticmethod
+    def backward(ctx, go):
+        return recompute_vjp(lgag_gate_ref, ctx.saved_tensors,
+                             ctx.needs_input_grad, go)
+
+
+def lgag_gate(g, x, taps, a1, b1, psi_w, scalars):
+    """g, x (B, H, W, C) with C = 2*C2; folded parameters from
+    :func:`lgag_fold`. Returns x * psi in x's dtype."""
+    B, H, W, C = g.shape
+    C2 = C // 2
+    if x.shape != g.shape or C != 2 * C2 or tuple(taps.shape) != (5, 5, 2, C2):
+        raise ValueError(f"lgag_gate: g {tuple(g.shape)} x {tuple(x.shape)} "
+                         f"taps {tuple(taps.shape)}")
+    if g.dtype != x.dtype:
+        raise TypeError("lgag_gate: g and x must share a dtype")
+    if g.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lgag_gate: no kernel for {g.device}")
+    return LgagGate.apply(g, x, taps, a1, b1, psi_w, scalars)
 
 
 def lgag_gate_eval(g, x, convs, bn, psi_w, psi_b, psi_bn):

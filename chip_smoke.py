@@ -24,7 +24,28 @@ exits non-zero without its last line:
    just before and read just after;
 6. throughput: the batch-128 bf16 224x224 forward, slices/s; its logits
    are then held against the fp32 forward of the same batch on the card
-   (max abs error <= 0.05 * max|fp32 logits|).
+   (max abs error <= 0.05 * max|fp32 logits|);
+7. scan2d: the quad scan's backward recurrence (``csrc/scan2d.cu``), scan
+   and adjoint modes, against its plain version at every batch-48 224x224
+   training shape, fp32 (TF32 off; rtol 1e-4, atol 1e-4 * max|plain|), timed
+   beside it;
+8. train step vs CPU: one unfrozen gm_tiny train step, batch 2, fp32, on
+   the card and on the CPU from the same weights, batch and drop-path
+   masks: the loss, every parameter's gradient (rtol 2e-3, atol 1e-8 +
+   2e-3 * max|CPU grad| per tensor, or, where fp32 rounding alone moves
+   the CPU's gradients further when it runs on half its threads, twice
+   that), the BN running statistics and the launches of the step;
+9. trainer (the training main path): ``entry.train_entry`` at batch 48,
+   224x224, bf16 compute with fp32 parameters, AdamW and DiceCE on a seeded
+   synthetic batch with blob-shaped labels; 2 frozen-encoder steps then 8
+   unfrozen ones (launch counters reset just before, read just after):
+   finite losses that fall, the encoder unchanged while frozen and changed
+   after (all but the weights behind a ReLU off for every sample), a
+   non-zero gradient in the first unfrozen step for every
+   parameter whose true gradient is not 0 (a bias feeding a train-mode
+   BatchNorm, or weights behind a ReLU off for every sample, have 0), finite
+   ones in the last; ms/step and peak memory; 3 fp32
+   steps; the bf16-vs-fp32 gradient cosine of one batch-2 step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -33,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -95,14 +117,42 @@ def compare(got, want, dtype) -> float:
 
 # --- phase 3: kernels at the main-path shapes -------------------------------
 
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s; fp32 outside the
+# tensor cores and bf16 tensor-core FLOP/s
+HBM_BPS = 3.35e12
+PEAK = {"fp32": 67e12, "bf16": 989e12}
+
+
+class Case:
+    """One kernel call: the kernel, its plain version, the one PyTorch
+    call computing the same function (or None), and the least work the
+    function needs: bytes (inputs read once, outputs written once) and
+    operations, with the peak rate of their type."""
+
+    def __init__(self, kern, plain, library, nbytes, ops, peak):
+        self.kern, self.plain, self.library = kern, plain, library
+        self.nbytes, self.ops, self.peak = nbytes, ops, peak
+
+    def bound_ms(self):
+        return max(self.nbytes / HBM_BPS, self.ops / PEAK[self.peak]) * 1e3
+
+    def bound_by(self):
+        return ("bytes" if self.nbytes / HBM_BPS >= self.ops / PEAK[self.peak]
+                else "operations")
+
+
 def kernel_cases(dev):
     """name -> (route, source, replaces, [(shape tag, calls per forward,
-    make(batch, dtype) -> (kernel fn, plain fn))])."""
+    make(batch, dtype) -> Case)])."""
+    import torch.nn.functional as F
     from ceigm_unet_tpu_torch.ops import ffn, grid_sample, quad_scan, tapconv
     gen = torch.Generator().manual_seed(SEED)
 
     def rnd(shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def size(dt):
+        return torch.tensor([], dtype=dt).element_size()
 
     def quad(H, W, D):
         def make(B, dt):
@@ -112,25 +162,39 @@ def kernel_cases(dev):
                     -torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3),
                     rnd((K, D)), 1 + rnd((K, D), 0.1), rnd((K, D), 0.1),
                     H, W, (1, 2, 3, 4)]
-            return (lambda: quad_scan.quad_scan_ln_cat(*args),
-                    lambda: quad_scan.quad_scan_ln_cat_ref(*args))
+            n = B * K * L * D
+            # ~22 elementwise operations per element: softplus, decay,
+            # drive, the scan FMA, C*h + D*u, LN statistics and affine
+            return Case(lambda: quad_scan.quad_scan_ln_cat(*args),
+                        lambda: quad_scan.quad_scan_ln_cat_ref(*args), None,
+                        size(dt) * (3 * n + 2 * B * K * L) + 20 * K * D,
+                        22 * n, "fp32")
         return make
 
     def gemm(L, K, N, hidden_in):
         def make(B, dt):
-            a = rnd((B * L, K), 1.0, torch.float32 if hidden_in else dt)
+            M = B * L
+            a = rnd((M, K), 1.0, torch.float32 if hidden_in else dt)
             w, b = rnd((K, N), 0.05, dt), rnd((N,), 0.1)
             od = dt if hidden_in else torch.float32
-            return (lambda: ffn.ffn_gemm(a, w, b, od),
-                    lambda: ffn.ffn_gemm_ref(a, w, b, od))
+            a_w, b_w = a.to(dt), b.to(dt)
+            return Case(lambda: ffn.ffn_gemm(a, w, b, od),
+                        lambda: ffn.ffn_gemm_ref(a, w, b, od),
+                        lambda: torch.addmm(b_w, a_w, w),
+                        M * K * a.element_size() + K * N * size(dt) + 4 * N
+                        + M * N * size(od), 2 * M * N * K,
+                        "bf16" if dt == torch.bfloat16 else "fp32")
         return make
 
     def dw3(H, W, HID):
         def make(B, dt):
             args = [rnd((B * H * W, HID)), rnd((3, 3, 1, HID), 0.2),
                     rnd((HID,), 0.1), H, W]
-            return (lambda: ffn.dw3_gelu(*args),
-                    lambda: ffn.dw3_gelu_ref(*args))
+            M = B * H * W
+            # 9 taps (18), the bias, the erf-GELU polynomial (~10)
+            return Case(lambda: ffn.dw3_gelu(*args),
+                        lambda: ffn.dw3_gelu_ref(*args), None,
+                        8 * M * HID + 40 * HID, 29 * M * HID, "fp32")
         return make
 
     def inc7(H, W, HID):
@@ -140,9 +204,20 @@ def kernel_cases(dev):
                 HID, g, rnd((3, 3, 1, g), 0.2), rnd((5, 5, 1, g), 0.1),
                 rnd((7, 7, 1, g), 0.05), rnd((g,), .1), rnd((g,), .1),
                 rnd((g,), .1), torch.float32)
-            args = [rnd((B * H * W, HID)), k, b, H, W, HID - 3 * g]
-            return (lambda: ffn.inception7(*args),
-                    lambda: ffn.inception7_ref(*args))
+            q = rnd((B * H * W, HID))
+            args = [q, k, b, H, W, HID - 3 * g]
+            # q + conv(q) is one depthwise conv whose centre tap is + 1
+            k_id = k.clone()
+            k_id[3, 3] += 1.0
+            w_nchw = k_id.permute(3, 2, 0, 1).contiguous()
+            q_nchw = q.view(B, H, W, HID).permute(0, 3, 1, 2)
+            M = B * H * W
+            return Case(lambda: ffn.inception7(*args),
+                        lambda: ffn.inception7_ref(*args),
+                        lambda: F.conv2d(q_nchw, w_nchw, b, padding=3,
+                                         groups=HID),
+                        8 * M * HID + 200 * HID,
+                        M * (2 * g * (9 + 25 + 49) + 2 * HID), "fp32")
         return make
 
     def gsample(H, W, C):
@@ -154,8 +229,20 @@ def kernel_cases(dev):
                                dim=-1)
             grid = base[None, :, :, None, :].to(dev) + rnd(
                 (B, 2 * H, 2 * W, 4, 2), 0.1 / H)
-            return (lambda: grid_sample.dysample_grid_sample(x, grid),
-                    lambda: grid_sample.dysample_grid_sample_ref(x, grid))
+            g, cg, P = 4, C // 4, 4 * H * W
+            # the regrouped batch F.grid_sample takes, built outside the
+            # timing
+            xg = x.reshape(B, H, W, g, cg).permute(0, 3, 4, 1, 2).reshape(
+                B * g, cg, H, W)
+            gg = grid.permute(0, 3, 1, 2, 4).reshape(
+                B * g, 2 * H, 2 * W, 2).to(dt)
+            return Case(lambda: grid_sample.dysample_grid_sample(x, grid),
+                        lambda: grid_sample.dysample_grid_sample_ref(x, grid),
+                        lambda: F.grid_sample(xg, gg, mode="bilinear",
+                                              padding_mode="border",
+                                              align_corners=False),
+                        size(dt) * B * (H * W + P) * C + 8 * B * P * g,
+                        8 * B * P * C + 20 * B * P * g, "fp32")
         return make
 
     def lgag(H, W, C):
@@ -164,8 +251,13 @@ def kernel_cases(dev):
             args = [rnd((B, H, W, C), 1.0, dt), rnd((B, H, W, C), 1.0, dt),
                     rnd((5, 5, 2, C2), 0.2), 1 + rnd((C2,), 0.1),
                     rnd((C2,), 0.1), rnd((C2,), 0.3), rnd((3,), 0.5)]
-            return (lambda: tapconv.lgag_gate(*args),
-                    lambda: tapconv.lgag_gate_ref(*args))
+            n = B * H * W
+            # 50 taps (100), BN affine, ReLU, the psi dot product per C2
+            # channel; sigmoid per pixel; x * psi per channel
+            return Case(lambda: tapconv.lgag_gate(*args),
+                        lambda: tapconv.lgag_gate_ref(*args), None,
+                        3 * size(dt) * n * C + 4 * 53 * C2,
+                        n * (105 * C2 + 10 + C), "fp32")
         return make
 
     ffn_blocks = [(14, 348, 1392, 3), (28, 128, 512, 2), (56, 64, 256, 2)]
@@ -209,29 +301,43 @@ def phase_kernels(dev, gpu):
     bf16 = torch.bfloat16
     for name, (route, source, replaces, cases) in kernel_cases(dev).items():
         errs = {(2, torch.float32): 0.0, (2, bf16): 0.0, (128, bf16): 0.0}
-        ms = plain_ms = 0.0
+        ms = plain_ms = bound = bytes_ms = ops_ms = 0.0
+        library_ms = None
         for tag, calls, make in cases:
             for batch, dt in errs:
-                kern, plain = make(batch, dt)
-                err = compare(kern(), plain(), dt)
+                case = make(batch, dt)
+                err = compare(case.kern(), case.plain(), dt)
                 errs[batch, dt] = max(errs[batch, dt], err)
-            # kern, plain: the batch-128 bf16 pair, already checked
-            k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 3)
+            # case: the batch-128 bf16 call, already checked
+            k_ms, p_ms = time_ms(case.kern, 10), time_ms(case.plain, 3)
             ms += calls * k_ms
             plain_ms += calls * p_ms
+            bound += calls * case.bound_ms()
+            bytes_ms += calls * case.nbytes / HBM_BPS * 1e3
+            ops_ms += calls * case.ops / PEAK[case.peak] * 1e3
+            lib = "none"
+            if case.library is not None:
+                lib_ms = time_ms(case.library, 10)
+                library_ms = (library_ms or 0.0) + calls * lib_ms
+                lib = f"{lib_ms:.4f} ms"
             log(f"kernel {name} [{tag}] x{calls}/forward: b128 bf16 "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max abs err {err:.3e}"
-                f" | {gpu}")
-            del kern, plain
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, bound "
+                f"{case.bound_ms():.4f} ms ({case.bound_by()}), max abs err "
+                f"{err:.3e} | {gpu}")
+            del case
         log(f"kernel {name}: max abs err b2 fp32 "
             f"{errs[2, torch.float32]:.3e}, b2 bf16 {errs[2, bf16]:.3e}, "
             f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 forward "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, library "
+            f"{library_ms}, bound {bound:.4f} ms")
         results[name] = dict(
             name=name, route=route, source=source, replaces=replaces,
             max_abs_err=errs[2, torch.float32],
             max_abs_err_bf16=errs[2, bf16],
-            max_abs_err_bf16_b128=errs[128, bf16], ms=ms, plain_ms=plain_ms)
+            max_abs_err_bf16_b128=errs[128, bf16], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms)
     torch.cuda.empty_cache()
     return results
 
@@ -254,7 +360,8 @@ def check_counts(counts, forwards: int, what: str):
 def phase_model(dev):
     from ceigm_unet_tpu_torch.models import build_model
     from ceigm_unet_tpu_torch.ops import _build
-    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED)
+    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                        device="cpu")
     x = torch.randn((2, IMG, IMG, 1),
                     generator=torch.Generator().manual_seed(SEED + 1))
     t0 = time.perf_counter()
@@ -362,6 +469,302 @@ def phase_throughput(model, dev, gpu):
         f"{BF16_MODEL_TOL}*max) | {gpu}")
 
 
+# --- phases 7-9: training ---------------------------------------------------
+
+TRAIN_BATCH = 48
+# (tag, quad blocks at that shape in gm_tiny 224x224, side, D per group):
+# each block's backward runs K8 twice (h again, then the adjoint)
+TRAIN_SCAN_SHAPES = [("56x56 D16", 5, 56, 16), ("28x28 D32", 6, 28, 32),
+                     ("14x14 D87", 12, 14, 87), ("7x7 D112", 3, 7, 112)]
+# launches of one unfrozen gm_tiny train step; a frozen step runs no
+# encoder backward, so only the 7 decoder blocks' 14 scans
+PER_TRAIN_STEP = {"quad_scan_ln": 26, "scan2d": 52, "cffn_gemm": 14,
+                  "cffn_dw3_gelu": 7, "cffn_inception7": 7,
+                  "dysample_grid_sample": 3}
+FROZEN_SCANS = 14
+PHASE8_IMG = 224
+# biases that feed a train-mode BatchNorm (LGAG's six branch convs and its
+# psi conv): the batch mean removes them, so their true gradient is 0
+BN_CANCELLED = re.compile(r"\.lgag\d\.(W_[gx]_\d|psi\.0)\.bias$")
+GRAD_FLOOR = 2e-3              # gradient rtol, and atol / max|CPU grad|
+# the card may use up to this multiple of the share of the gradient
+# tolerance that the CPU uses against itself on half its threads
+NOISE_MARGIN = 2.0
+BF16_GRAD_COSINE = 0.9
+
+
+def phase_scan2d(dev, gpu):
+    """K8 against its plain version at every b48 training shape, both
+    modes, fp32 (TF32 off); timed beside the plain version."""
+    from ceigm_unet_tpu_torch.ops import quad_scan
+    gen = torch.Generator().manual_seed(SEED)
+    err = ms = plain_ms = bound = 0.0
+    for tag, calls, S, D in TRAIN_SCAN_SHAPES:
+        shape = (TRAIN_BATCH, 4, S * S, D)
+        # decays in (0, 1), mostly near 1: long memories, as the model's
+        a = torch.sigmoid(torch.randn(shape, generator=gen) * 2 + 2).to(dev)
+        b = torch.randn(shape, generator=gen).to(dev)
+        n = a.numel()
+        for mode, kern, plain in (
+                ("scan", quad_scan.scan2d, quad_scan.scan2d_ref),
+                ("adjoint", quad_scan.scan2d_adjoint,
+                 quad_scan.scan2d_adjoint_ref)):
+            for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+                e = compare(kern(a, b, S, S, dirs), plain(a, b, S, S, dirs),
+                            torch.float32)
+                err = max(err, e)
+            k_ms = time_ms(lambda: kern(a, b, S, S, dirs), 10)
+            p_ms = time_ms(lambda: plain(a, b, S, S, dirs), 3)
+            # a and b read, the result written, fp32; one FMA per element
+            b_ms = max(12 * n / HBM_BPS, 2 * n / PEAK["fp32"]) * 1e3
+            ms += calls * k_ms
+            plain_ms += calls * p_ms
+            bound += calls * b_ms
+            log(f"kernel scan2d [{tag} {mode}] x{calls}/train step: b48 "
+                f"fp32 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms (bytes), max abs err {e:.3e} | {gpu}")
+        del a, b
+    log(f"kernel scan2d: max abs err fp32 {err:.3e}; per b48 train step "
+        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms")
+    torch.cuda.empty_cache()
+    return dict(name="scan2d", route="cuda",
+                source="ceigm_unet_tpu_torch/csrc/scan2d.cu",
+                replaces="ceigm_unet_tpu/ops/quad_scan.py:176 _scan2d_kernel",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=None)
+
+
+def _trainer(model, dev):
+    from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr,
+                                                      make_optimizer,
+                                                      make_train_step,
+                                                      param_groups)
+    from ceigm_unet_tpu_torch.entry import SYNAPSE_STEPS_PER_EPOCH
+    return make_train_step(
+        model, make_optimizer(param_groups(model), 1e-3),
+        cosine_lr(5e-4, 1e-6, 300, SYNAPSE_STEPS_PER_EPOCH))
+
+
+def grad_tolerance_used(got, want) -> float:
+    """The largest share of the gradient tolerance an element uses: rtol
+    GRAD_FLOOR and atol 1e-8 + GRAD_FLOOR * max|want|, as
+    tests/test_torch_grad_parity.py compares gradients (1e-8: a bias ahead
+    of a train-mode BatchNorm has a true gradient of 0 and holds only
+    rounding noise). Above 1 fails."""
+    tol = 1e-8 + GRAD_FLOOR * (want.abs().max() + want.abs())
+    return ((got - want).abs() / tol).max().item()
+
+
+def phase_train_vs_cpu(dev, gpu):
+    """One unfrozen gm_tiny train step (fp32, TF32 off, b2) on the card
+    and on the CPU from the same weights, batch and drop-path masks (one
+    seeded CPU generator on each side): loss, every gradient, the BN
+    running statistics, and the card's launches. The CPU step runs again
+    on half the threads, which only reorders its sums: how far that moves
+    the gradients is the noise floor the card's are read against."""
+    from ceigm_unet_tpu_torch.entry import synthetic_batch
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    batch = synthetic_batch(2, PHASE8_IMG, 9, SEED, "cpu")
+    threads = torch.get_num_threads()
+    runs = {}
+    for tag, device, n_threads in (("cpu", "cpu", threads),
+                                   ("cpu/2", "cpu", max(1, threads // 2)),
+                                   ("card", dev, threads)):
+        torch.set_num_threads(n_threads)
+        model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                            device=device)
+        step = _trainer(model, device)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step({k: v.to(device) for k, v in batch.items()},
+                    generator=torch.Generator().manual_seed(SEED))["loss"]
+        runs[tag] = (loss.item(), model, dict(_build.launch_counts),
+                     time.perf_counter() - t0)
+    torch.set_num_threads(threads)
+    (l_cpu, m_cpu, _, cpu_s), (l_dev, m_dev, counts, dev_s) = \
+        runs["cpu"], runs["card"]
+    if counts != PER_TRAIN_STEP:
+        fail(f"one train step: kernel launches {counts}, expected "
+             f"{PER_TRAIN_STEP}")
+    if not abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu):
+        fail(f"train-step loss on the card {l_dev} vs the CPU {l_cpu}")
+    cpu_p = dict(m_cpu.named_parameters())
+    half_p = dict(runs["cpu/2"][1].named_parameters())
+    used, floor = [], []
+    for name, p in m_dev.named_parameters():
+        want = cpu_p[name].grad
+        got = p.grad.cpu()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{name}: non-finite gradient on the card")
+        used.append((grad_tolerance_used(got, want), name))
+        floor.append((grad_tolerance_used(half_p[name].grad, want), name))
+    used.sort(reverse=True)
+    floor.sort(reverse=True)
+    log(f"train step gradients, share of the tolerance used (rtol "
+        f"{GRAD_FLOOR}, atol 1e-8 + {GRAD_FLOOR}*max|CPU grad|), largest "
+        f"5: card vs CPU {[(round(u, 3), n) for u, n in used[:5]]}; CPU on "
+        f"{max(1, threads // 2)} threads vs {threads} "
+        f"{[(round(u, 3), n) for u, n in floor[:5]]}")
+    # a share the CPU reaches against itself by reordering its sums is
+    # fp32 noise of this step, not a fault of the card
+    limit = max(1.0, NOISE_MARGIN * floor[0][0])
+    if used[0][0] > limit:
+        fail(f"{used[0][1]}: gradient uses {used[0][0]:.3f} of its "
+             f"tolerance, past {limit:.3f}")
+    cpu_b = dict(m_cpu.named_buffers())
+    stat_err = 0.0
+    for name, b in m_dev.named_buffers():
+        if "running" in name:
+            e = (b.cpu() - cpu_b[name]).abs()
+            if bool((e > 1e-5 + 1e-4 * cpu_b[name].abs()).any()):
+                fail(f"{name}: running statistic differs from the CPU by "
+                     f"{e.max().item():.3e}")
+            stat_err = max(stat_err, e.max().item())
+    n = sum(1 for _ in m_dev.parameters())
+    log(f"train step gm_tiny {PHASE8_IMG}x{PHASE8_IMG} b2 fp32 card vs CPU:"
+        f" loss {l_dev:.6f} vs {l_cpu:.6f}; {n} gradients within "
+        f"{limit:.3f}x their tolerance (the worst uses {used[0][0]:.3f}, "
+        f"the CPU against itself {floor[0][0]:.3f}); BN running stats max "
+        f"abs err {stat_err:.3e}; launches {counts}; CPU step {cpu_s:.1f} s,"
+        f" card step {dev_s:.1f} s (first, with warm-up) | {gpu}")
+    del m_cpu, m_dev, runs
+
+
+def watch_dead_relus(model, dead: set) -> list:
+    """Forward hooks on every GroupMambaLayer's SE bottleneck (fc1 -> ReLU
+    -> fc2; 4 units in gm_tiny's first stage): where the ReLU is off for
+    every sample, fc1's weight and bias and fc2's weight have a true
+    gradient of 0, and their names go into ``dead``."""
+    from ceigm_unet_tpu_torch.models.groupmamba import GroupMambaLayer
+
+    def hook(name):
+        def record(module, inputs, out):
+            if not bool((out > 0).any()):
+                dead.update(f"{name}.{p}" for p in ("fc1.weight", "fc1.bias",
+                                                    "fc2.weight"))
+        return record
+    return [m.fc1.register_forward_hook(hook(name))
+            for name, m in model.named_modules()
+            if isinstance(m, GroupMambaLayer)]
+
+
+def _flat_grad(model):
+    return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
+
+
+def phase_trainer(dev, gpu):
+    """The trainer at full width (the training main path): gm_tiny b48
+    224x224 bf16 (fp32 parameters), 2 frozen-encoder steps then 8 unfrozen
+    ones; then 3 fp32 steps, and the bf16-vs-fp32 gradient cosine of one b2
+    step. Returns the launch counts of the 10 bf16 steps."""
+    from ceigm_unet_tpu_torch.entry import train_entry
+    from ceigm_unet_tpu_torch.losses import dice_ce_loss
+    from ceigm_unet_tpu_torch.ops import _build
+
+    def run(dtype, frozen_flags):
+        model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        enc0 = [p.detach().clone() for p in model.encoder.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        losses, times, zero, dead = [], [], None, set()
+        first = frozen_flags.index(False)
+        for i, frozen in enumerate(frozen_flags):
+            hooks = watch_dead_relus(model, dead) if i == first else []
+            t0 = time.perf_counter()
+            losses.append(step(batch, freeze_encoder=frozen,
+                               generator=gen)["loss"].item())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for h in hooks:
+                h.remove()
+            if frozen and not all(torch.equal(p, q) for p, q in zip(
+                    model.encoder.parameters(), enc0)):
+                fail(f"step {i}: an encoder parameter moved while frozen")
+            if i == first:
+                # the first step through the whole graph
+                zero = [n for n, p in model.named_parameters()
+                        if not BN_CANCELLED.search(n) and n not in dead
+                        and not bool(p.grad.abs().max() > 0)]
+        counts = dict(_build.launch_counts)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        return (model, enc0, losses, times, counts, mem, zero, sorted(dead),
+                batch, gen)
+
+    flags = [True] * 2 + [False] * 8
+    model, enc0, losses, times, counts, mem, zero, dead, batch, gen = run(
+        torch.bfloat16, flags)
+    want = {k: v * 10 for k, v in PER_TRAIN_STEP.items()}
+    want["scan2d"] = 2 * FROZEN_SCANS + 8 * PER_TRAIN_STEP["scan2d"]
+    if counts != want:
+        fail(f"10 train steps: kernel launches {counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses}")
+    if zero:
+        fail(f"all-zero gradients in the first unfrozen step: {zero}")
+    for name, p in model.named_parameters():
+        if not bool(torch.isfinite(p.grad).all()):
+            fail(f"{name}: non-finite gradient in the last step")
+    # a zero bias behind a dead ReLU has no gradient and nothing to decay
+    still = [n for (n, p), q in zip(model.encoder.named_parameters(
+        prefix="encoder"), enc0) if torch.equal(p, q)]
+    n_enc = len(enc0)
+    if not set(still) <= set(dead):
+        fail(f"encoder tensors unchanged after the unfreeze: {still}")
+    unfrozen = times[2:]
+    med = statistics.median(unfrozen)
+    # the forward and the loss alone (graph recorded, no backward): the
+    # rest of a step is the backward and the optimizer
+    fwd = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dice_ce_loss(model(batch["image"], generator=gen), batch["label"],
+                     0.4, 0.6).item()
+        fwd.append((time.perf_counter() - t0) * 1e3)
+    fwd_ms = statistics.median(fwd)
+    log(f"trainer gm_tiny b{TRAIN_BATCH} 224x224 bf16: losses "
+        f"{[round(v, 5) for v in losses]}; frozen steps "
+        f"{[round(t, 1) for t in times[:2]]} ms; unfrozen median {med:.3f} "
+        f"ms/step over {len(unfrozen)} (min {min(unfrozen):.3f}, max "
+        f"{max(unfrozen):.3f}), {TRAIN_BATCH * 1e3 / med:.2f} slices/s, of "
+        f"which the forward and loss {fwd_ms:.3f} ms; peak memory "
+        f"{mem:.2f} GiB; encoder unchanged over the frozen steps, "
+        f"{n_enc - len(still)} of {n_enc} tensors changed after (unchanged: "
+        f"{still}); all-zero gradients in the first "
+        f"unfrozen step only behind a ReLU that is off for every sample: "
+        f"{dead} | {gpu}")
+    del model, enc0, batch
+    torch.cuda.empty_cache()
+
+    model, _, losses32, times32, _, mem32, *_ = run(torch.float32,
+                                                    [False] * 3)
+    med32 = statistics.median(times32)
+    log(f"trainer gm_tiny b{TRAIN_BATCH} 224x224 fp32 (TF32 off): losses "
+        f"{[round(v, 5) for v in losses32]}; median {med32:.3f} ms/step "
+        f"over 3 ({[round(t, 1) for t in times32]}), peak memory "
+        f"{mem32:.2f} GiB | {gpu}")
+    del model
+    torch.cuda.empty_cache()
+
+    grads = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model, step, batch = train_entry(dev, dtype, 2, SEED)
+        step(batch, generator=torch.Generator().manual_seed(SEED))
+        grads.append(_flat_grad(model))
+        del model, step
+    cos = torch.nn.functional.cosine_similarity(grads[0], grads[1],
+                                                dim=0).item()
+    if not cos >= BF16_GRAD_COSINE:
+        fail(f"bf16 vs fp32 gradient cosine {cos:.6f} < {BF16_GRAD_COSINE}")
+    log(f"trainer b2 bf16 vs fp32 gradients: cosine {cos:.6f} (fails below "
+        f"{BF16_GRAD_COSINE})")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -375,17 +778,31 @@ def main() -> int:
     gpu = gpu_line()
     log(f"device: {gpu} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s ({_build.build().name})")
-    kernels = phase_kernels(dev, gpu)
-    model = phase_model(dev)
-    counts = phase_serving(model, dev, gpu)
-    phase_throughput(model, dev, gpu)
-    for name, n in counts.items():
-        kernels[name]["launches"] = n
-    if any("launches" not in k for k in kernels.values()):
-        fail("a kernel was not launched on the main path")
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("2 build", _build.library)
+    log(f"build: {_build.build().name}")
+    kernels = timed("3 kernels", phase_kernels, dev, gpu)
+    model = timed("4 model", phase_model, dev)
+    serving = timed("5 serving", phase_serving, model, dev, gpu)
+    timed("6 throughput", phase_throughput, model, dev, gpu)
+    del model
+    torch.cuda.empty_cache()
+    kernels["scan2d"] = timed("7 scan2d", phase_scan2d, dev, gpu)
+    timed("8 train step vs CPU", phase_train_vs_cpu, dev, gpu)
+    training = timed("9 trainer", phase_trainer, dev, gpu)
+    # each kernel's launches on its own main path: serving for the
+    # forward's kernels, training for K8
+    for name in kernels:
+        kernels[name]["launches"] = (training if name == "scan2d"
+                                     else serving).get(name, 0)
+    if any(k["launches"] == 0 for k in kernels.values()):
+        fail("a kernel was not launched on its path")
     log(gpu)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ This file imports no JAX, so it runs where JAX is not installed:
 Tolerances: fp32 with TF32 off, rtol 1e-4 and atol 1e-4 * max|plain| (the
 kernels sum in another order than the plain versions); bf16 rtol 3e-2 and
 atol 5e-2 * max|plain| (tests/test_kernel_matrix.py's bf16 row).
+Gradients on the card against the CPU: rtol 2e-3 and atol 1e-8 + 2e-3 *
+max|CPU grad| per tensor (tests/test_torch_grad_parity.py's comparison).
 """
 import pytest
 import torch
@@ -18,9 +20,16 @@ from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   dysample_grid_sample_ref)
+from ceigm_unet_tpu_torch.ops.ffn import ffn_gemm
 from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
-                                                quad_scan_ln_cat_ref)
+                                                quad_scan_ln_cat_ref, scan2d,
+                                                scan2d_adjoint,
+                                                scan2d_adjoint_ref,
+                                                scan2d_ref)
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate, lgag_gate_ref
+from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
+                                                  make_train_step,
+                                                  param_groups)
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 5e-2)}
@@ -133,7 +142,7 @@ def test_wrappers_raise_on_unsupported_dtype(dev):
 
 
 def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
-    model = build_model(enc_name="gm_test")
+    model = build_model(enc_name="gm_test", device="cpu")
     x = torch.randn((2, 64, 64, 1), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         want = model(x)
@@ -148,3 +157,117 @@ def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
                       "cffn_dw3_gelu": 7, "cffn_inception7": 7,
                       "dysample_grid_sample": 3, "lgag_gate": 3}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+# gm_tiny b48 224x224: stage 1 (56x56, D 16) and stage 3 (14x14, D 87)
+@pytest.mark.parametrize("shape", [(48, 56, 56, 16), (48, 14, 14, 87),
+                                   (1, 3, 5, 128)])
+def test_scan2d_kernel(dev, shape, adjoint):
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D)
+    K, L = 4, H * W
+    a = torch.sigmoid(_rand(g, (B, K, L, D), dev, 2.0) + 2.0)
+    b = _rand(g, (B, K, L, D), dev)
+    kern, ref = ((scan2d_adjoint, scan2d_adjoint_ref) if adjoint
+                 else (scan2d, scan2d_ref))
+    for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+        _close(kern(a, b, H, W, dirs), ref(a, b, H, W, dirs), "float32")
+
+
+def _quad_leaves(g, B, H, W, D, dev, dtype):
+    K, L = 4, H * W
+    act = [_rand(g, (B, K, L, D), dev, s, dtype) for s in (1.0, 0.5)]
+    act += [_rand(g, (B, K, L), dev, 1.0, dtype) for _ in range(2)]
+    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
+           _rand(g, (K, D), dev), 1 + _rand(g, (K, D), dev, .1),
+           _rand(g, (K, D), dev, .1)]
+    return [t.requires_grad_() for t in act + prm]
+
+
+@pytest.mark.parametrize("shape", [(2, 56, 56, 16), (3, 7, 7, 112)])
+def test_quad_scan_backward_on_card_matches_cpu(dev, shape):
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D)
+    leaves = _quad_leaves(g, B, H, W, D, dev, torch.float32)
+    go = _rand(g, (B, H * W, 4 * D), dev)
+    cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+    dirs = (1, 2, 3, 4)
+    _build.reset_launch_counts()
+    quad_scan_ln_cat(*leaves, H, W, dirs).backward(go)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"quad_scan_ln": 1, "scan2d": 2}
+    quad_scan_ln_cat(*cpu, H, W, dirs).backward(go.cpu())
+    for t, c in zip(leaves, cpu):
+        torch.testing.assert_close(
+            t.grad.cpu(), c.grad, rtol=1e-3,
+            atol=2e-3 * c.grad.abs().max().item())
+
+
+def test_kernel_ops_keep_the_autograd_graph(dev):
+    """Every kernel op's output carries a grad_fn when an input requires
+    grad, and the stage kernels without a backward refuse such inputs."""
+    g = torch.Generator().manual_seed(0)
+    leaves = _quad_leaves(g, 1, 4, 6, 8, dev, torch.float32)
+    assert quad_scan_ln_cat(*leaves, 4, 6, (1, 2, 3, 4)).grad_fn is not None
+    x = _rand(g, (1, 24, 16), dev).requires_grad_()
+    gb = 4
+    inck, incb = inception_composite(
+        32, gb, _rand(g, (3, 3, 1, gb), dev), _rand(g, (5, 5, 1, gb), dev),
+        _rand(g, (7, 7, 1, gb), dev), *[_rand(g, (gb,), dev)] * 3,
+        torch.float32)
+    args = [x, _rand(g, (16, 32), dev, .1), _rand(g, (32,), dev),
+            _rand(g, (3, 3, 1, 32), dev), _rand(g, (32,), dev), inck, incb,
+            _rand(g, (32, 16), dev, .1), _rand(g, (16,), dev)]
+    assert custom_ffn_fused(*args, 4, 6, 12).grad_fn is not None
+    xs = _rand(g, (1, 4, 4, 8), dev).requires_grad_()
+    grid = torch.zeros((1, 8, 8, 4, 2), device=dev)
+    assert dysample_grid_sample(xs, grid).grad_fn is not None
+    prm = [_rand(g, (5, 5, 2, 4), dev), *[_rand(g, (4,), dev)] * 3,
+           _rand(g, (3,), dev)]
+    assert lgag_gate(xs, xs, *prm).grad_fn is not None
+    with pytest.raises(RuntimeError, match="no backward"):
+        ffn_gemm(x[0], args[1], args[2], torch.float32)
+
+
+def test_gm_test_train_step_on_card_matches_cpu(dev):
+    """One unfrozen AdamW step of gm_test (decoder drop-path masks from one
+    CPU generator on both sides): the loss, every parameter's gradient
+    (finite) and the BN running statistics, card against CPU; and the
+    launches of the step."""
+    batch = {"image": torch.randn((4, 64, 64, 1), generator=torch.Generator(
+        ).manual_seed(1)), "label": torch.randint(0, 9, (4, 64, 64),
+                                                   generator=torch.Generator(
+                                                   ).manual_seed(2))}
+    runs = []
+    for device in ("cpu", dev):
+        model = build_model(enc_name="gm_test", device=device).train()
+        step = make_train_step(model, make_optimizer(param_groups(model),
+                                                     1e-3),
+                               cosine_lr(5e-4, 1e-6, 300, 46))
+        _build.reset_launch_counts()
+        loss = step({k: v.to(device) for k, v in batch.items()},
+                    generator=torch.Generator().manual_seed(3))["loss"]
+        torch.cuda.synchronize()
+        runs.append((loss.item(), model, dict(_build.launch_counts)))
+    (l_cpu, m_cpu, _), (l_dev, m_dev, counts) = runs
+    # 11 quad blocks forward and 22 scans backward; 7 CustomFfn; 3
+    # DySample; LGAG takes its unfolded form in training
+    assert counts == {"quad_scan_ln": 11, "scan2d": 22, "cffn_gemm": 14,
+                      "cffn_dw3_gelu": 7, "cffn_inception7": 7,
+                      "dysample_grid_sample": 3}
+    assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
+    cpu_p = dict(m_cpu.named_parameters())
+    for name, p in m_dev.named_parameters():
+        want = cpu_p[name].grad
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        # 1e-8: a bias ahead of a train-mode BatchNorm has a true
+        # gradient of 0 and holds only rounding noise (or an exact 0)
+        torch.testing.assert_close(
+            p.grad.cpu(), want, rtol=2e-3,
+            atol=1e-8 + 2e-3 * want.abs().max().item(), msg=name)
+    cpu_b = dict(m_cpu.named_buffers())
+    for name, b in m_dev.named_buffers():
+        if "running" in name:
+            torch.testing.assert_close(b.cpu(), cpu_b[name], rtol=1e-4,
+                                       atol=1e-5, msg=name)

@@ -140,7 +140,7 @@ def gm_test():
         mutable=["intermediates"]))
     logits, inter = apply(v, jnp.asarray(x))
     feats = inter["intermediates"]["encoder"]["__call__"][0]
-    model = build_model(enc_name="gm_test")
+    model = build_model(enc_name="gm_test", device="cpu")
     jax_import.load_numpy_state_dict(model, jax_import.state_dict_from_jax(
         v, depths=GM_TEST_DEPTHS))
     return dict(x=x, v=v, jm=jm, logits=np.asarray(logits),

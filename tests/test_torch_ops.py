@@ -322,7 +322,7 @@ def test_ffn_gemm_rejects_dtype_pairs_the_kernel_lacks():
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build.sources())
     assert names == ["cffn.cu", "common.cuh", "grid_sample.cu", "lgag.cu",
-                     "quad_scan_ln.cu"]
+                     "quad_scan_ln.cu", "scan2d.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -330,7 +330,12 @@ def test_build_sources_and_hash():
 def test_port_imports_no_jax():
     code = ("import sys, ceigm_unet_tpu_torch, ceigm_unet_tpu_torch.models, "
             "ceigm_unet_tpu_torch.eval.volume, ceigm_unet_tpu_torch.entry, "
-            "ceigm_unet_tpu_torch.convert.jax_import; "
+            "ceigm_unet_tpu_torch.convert.jax_import, "
+            "ceigm_unet_tpu_torch.losses, ceigm_unet_tpu_torch.train, "
+            "ceigm_unet_tpu_torch.train.config, "
+            "ceigm_unet_tpu_torch.train.lr_scheduler, "
+            "ceigm_unet_tpu_torch.train.trainstep; "
+            "from ceigm_unet_tpu_torch.entry import train_entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ceigm_unet_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
