@@ -71,25 +71,23 @@ class BatchNorm2d(nn.BatchNorm2d):
 class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval. In training the
     keep masks (one per sample, kept with probability 1 - rate, kept
-    samples scaled by 1/keep) come from an explicit ``torch.Generator``:
-    ``self.generator`` if set, else the one passed to ``forward``. There is
-    no draw from torch's global generator."""
+    samples scaled by 1/keep) come from the ``torch.Generator`` passed to
+    ``forward``. There is no draw from torch's global generator."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
-        self.generator = None
 
     def forward(self, x, generator=None):
         if not self.training or self.rate == 0.0:
             return x
-        gen = self.generator if self.generator is not None else generator
-        if gen is None:
+        if generator is None:
             raise ValueError("DropPath in training needs a torch.Generator "
-                             "(set .generator or pass generator=)")
+                             "(pass generator=)")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=gen, device=gen.device) < keep
+        mask = torch.rand(shape, generator=generator,
+                          device=generator.device) < keep
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 

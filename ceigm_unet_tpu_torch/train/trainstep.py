@@ -89,16 +89,14 @@ OPTIMIZERS = {
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float],
-                    ce_weight: float = 0.4, dc_weight: float = 0.6,
-                    loss_fn: Optional[Callable] = None):
+                    ce_weight: float = 0.4, dc_weight: float = 0.6):
     """Returns ``step(batch, freeze_encoder=False, generator=None) ->
     {"loss"}``; batch = {"image": (B, H, W, 1|3), "label": (B, H, W)} on the
     model's device. ``optimizer`` holds :func:`param_groups` (its
     ``"encoder"`` group is the one frozen). The step count, which the LR
     schedule reads, is ``step.count``."""
-    if loss_fn is None:
-        loss_fn = functools.partial(dice_ce_loss, ce_weight=ce_weight,
-                                    dc_weight=dc_weight)
+    loss_fn = functools.partial(dice_ce_loss, ce_weight=ce_weight,
+                                dc_weight=dc_weight)
     enc = [g for g in optimizer.param_groups if g.get("name") == "encoder"]
     if len(enc) != 1:
         raise ValueError("the optimizer needs one param group named "
