@@ -1,5 +1,6 @@
 """PyTorch + CUDA port of ``ceigm_unet_tpu`` (MSVM-UNet inference and its
-training step).
+training step; the legacy VMamba MSVM-UNet's inference and the
+``selective_scan`` op).
 
 Same layout and public names as the JAX package (``ops/``, ``models/``,
 ``convert/``, ``eval/``, ``train/``, ``losses``). Every Pallas kernel on

@@ -1,5 +1,7 @@
 """JAX variables -> port ``state_dict``: the exact inverse of
-``ceigm_unet_tpu/convert/torch_import.py`` ``convert_msvm_unet_state_dict``.
+``ceigm_unet_tpu/convert/torch_import.py`` ``convert_msvm_unet_state_dict``
+(:func:`state_dict_from_jax`) and of ``convert/vssm_import.py``
+``convert_msvm_legacy_state_dict`` (:func:`legacy_state_dict_from_jax`).
 
 Layouts: flax Dense kernel (in, out) -> Linear (out, in); flax Conv kernel
 (kh, kw, in/g, out) -> Conv2d (out, in/g, kh, kw); stacked QuadGroupSS2D
@@ -180,6 +182,99 @@ def state_dict_from_jax(variables: Mapping[str, Any],
         p["encoder"], s.get("encoder", {}), depths))
     return _put(sd, "decoder", emcad(p["decoder"], s.get("decoder", {}),
                                      front_depths))
+
+
+# --- the legacy MSVM-UNet (VSSM encoder + legacy decoder) --------------------
+# the exact inverse of ceigm_unet_tpu/convert/vssm_import.py: flax trees
+# -> the reference torch keys (the SSM arrays sit directly under ``op.``)
+
+MS_MLP_CONVS = (("hw3", "dwconv_hw.0"), ("hw5", "dwconv_hw.1"),
+                ("hw7", "dwconv_hw.2"), ("w11", "dwconv_w.0"),
+                ("w5", "dwconv_w.1"), ("h11", "dwconv_h.0"),
+                ("h5", "dwconv_h.1"))
+
+
+def vssm_ss2d(p) -> SD:
+    """flax SS2D tree -> ``in_proj, conv2d, x_proj_weight, ..., out_proj``."""
+    sd = _put({}, "in_proj", dense(p["in_proj"]))
+    _put(sd, "conv2d", conv(p["conv2d"]))
+    sd.update({k: _a(v) for k, v in p["ssm"].items()})
+    _put(sd, "out_norm", layer_norm(p["out_norm"]))
+    return _put(sd, "out_proj", dense(p["out_proj"]))
+
+
+def vss_block(p) -> SD:
+    """VSSBlock: ``norm, op, norm2, mlp`` (MS_MLP or the plain MLP)."""
+    sd = _put({}, "norm", layer_norm(p["norm"]))
+    _put(sd, "op", vssm_ss2d(p["op"]))
+    _put(sd, "norm2", layer_norm(p["norm2"]))
+    m = p["mlp"]
+    _put(sd, "mlp.fc1", dense(m["fc1"]))
+    for name, key in MS_MLP_CONVS if "multiscale_conv" in m else ():
+        _put(sd, f"mlp.multiscale_conv.{key}",
+             conv(m["multiscale_conv"][name]))
+    return _put(sd, "mlp.fc2", dense(m["fc2"]))
+
+
+def lkpe(p, s) -> SD:
+    """LKPE / FLKPE: ``expand.{0,1,3}``, ``norm`` (and FLKPE's ``out``)."""
+    sd = _put({}, "expand.0", conv(p["expand0"]))
+    _put(sd, "expand.1", batch_norm(p["bn"], s["bn"]))
+    _put(sd, "expand.3", conv(p["expand1"]))
+    _put(sd, "norm", layer_norm(p["norm"]))
+    if "out" in p:
+        _put(sd, "out", conv(p["out"]))
+    return sd
+
+
+def vssm(p, depths: Sequence[int]) -> SD:
+    """flax VSSM tree (patch embed v2, downsample v2/v3) ->
+    ``patch_embed.{0,2,5,7}``, ``layers.{i}.blocks.{j}.*``,
+    ``downsamples.{i}.{1,3}`` (and ``pos_embed``, channel-first)."""
+    sd: SD = {}
+    for name, idx, fn in (("patch_embed0", 0, conv), ("patch_norm0", 2,
+                                                      layer_norm),
+                          ("patch_embed1", 5, conv), ("patch_norm1", 7,
+                                                      layer_norm)):
+        _put(sd, f"patch_embed.{idx}", fn(p[name]))
+    if "pos_embed" in p:
+        sd["pos_embed"] = _a(p["pos_embed"]).transpose(0, 3, 1, 2).copy()
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            _put(sd, f"layers.{i}.blocks.{j}",
+                 vss_block(p[f"layer{i}_block{j}"]))
+        if i < len(depths) - 1:
+            _put(sd, f"downsamples.{i}.1", conv(p[f"downsample{i}_conv"]))
+            _put(sd, f"downsamples.{i}.3",
+                 layer_norm(p[f"downsample{i}_norm"]))
+    return sd
+
+
+def legacy_decoder(params, stats, depths: Sequence[int]) -> SD:
+    sd: SD = {}
+    for i in range(len(depths) - 1):
+        p, s = params[f"layer{i}"], stats[f"layer{i}"]
+        _put(sd, f"layers.{i}.up", lkpe(p["up"], s["up"]))
+        _put(sd, f"layers.{i}.concat_layer", dense(p["concat_layer"]))
+        for j in range(depths[i + 1]):
+            _put(sd, f"layers.{i}.vss_layer.blocks.{j}",
+                 vss_block(p["vss_layer"][f"block{j}"]))
+    return _put(sd, "out_layers.0", lkpe(params["out_layer"],
+                                         stats["out_layer"]))
+
+
+def legacy_state_dict_from_jax(variables: Mapping[str, Any],
+                               enc_depths: Sequence[int] = (2, 2, 8, 2),
+                               dec_depths: Sequence[int] = (2, 2, 2, 2)
+                               ) -> SD:
+    """JAX MSVMUNetLegacy ``{"params", "batch_stats"}`` -> the port's (and
+    the reference torch model's) ``state_dict`` as numpy arrays; the
+    inverse of ``convert_msvm_legacy_state_dict``."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd = _put({}, "encoder", vssm(p["encoder"], enc_depths))
+    return _put(sd, "decoder", legacy_decoder(p["decoder"],
+                                              s.get("decoder", {}),
+                                              dec_depths))
 
 
 def load_numpy_state_dict(module: torch.nn.Module, sd: SD) -> None:

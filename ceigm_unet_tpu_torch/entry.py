@@ -1,7 +1,8 @@
 """Entry points: the flagship model (MSVM-UNet gm_tiny, 9-class Synapse,
 224x224, 1 channel) and an example input, as ``__graft_entry__.entry`` gives
-them for the JAX package; and its training step on a seeded synthetic
-batch, the step ``tools/bench_train.py`` runs for the JAX package."""
+them for the JAX package; its training step on a seeded synthetic batch,
+the step ``tools/bench_train.py`` runs for the JAX package; and the legacy
+MSVM-UNet (VSSM tiny_0230s encoder) with an example input."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple, Union
@@ -9,7 +10,8 @@ from typing import Callable, Dict, Tuple, Union
 import numpy as np
 import torch
 
-from ceigm_unet_tpu_torch.models import MSVMUNet, build_model
+from ceigm_unet_tpu_torch.models import (MSVMUNet, MSVMUNetLegacy,
+                                         build_legacy_model, build_model)
 from ceigm_unet_tpu_torch.train.config import SYNAPSE_CONFIG
 from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
                                                   make_train_step,
@@ -26,6 +28,20 @@ def entry(device: Union[str, torch.device] = "cuda",
     a zero (1, 224, 224, 1) NHWC input there; ``model(x)`` gives logits."""
     model = build_model(num_classes=9, enc_name="gm_tiny", dtype=dtype,
                         device=device, seed=seed)
+    return model, torch.zeros((1, 224, 224, 1), device=device)
+
+
+def legacy_entry(device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32,
+                 seed: int = 0) -> Tuple[MSVMUNetLegacy, torch.Tensor]:
+    """(model, x) for the legacy MSVM-UNet (VSSM ``tiny_0230s`` encoder +
+    the published decoder, 9 classes): the seeded model in eval mode on
+    ``device`` and a zero (1, 224, 224, 1) NHWC input there.
+    ``predict_volume`` serves it as it serves ``entry()``'s model. On the
+    card its forward runs under ``torch.no_grad()``: the VMamba scan kernels
+    have no backward yet and refuse inputs that require grad."""
+    model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
+                               dtype=dtype, device=device, seed=seed)
     return model, torch.zeros((1, 224, 224, 1), device=device)
 
 

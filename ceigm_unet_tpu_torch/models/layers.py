@@ -8,6 +8,8 @@ dtype).
 """
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -91,12 +93,21 @@ class DropPath(nn.Module):
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
+def dw_conv(dim: int, kernel: Union[int, Tuple[int, int]] = 3,
+            bias: bool = True) -> Conv2d:
+    """Depthwise conv (groups == channels), ``kernel`` k or (kh, kw), with
+    torch padding k//2 per axis ('SAME' for odd kernels)."""
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+    return Conv2d(dim, dim, (kh, kw), padding=(kh // 2, kw // 2),
+                  groups=dim, bias=bias)
+
+
 class DwConv(nn.Module):
     """Depthwise 3x3 with bias (reference DWConv: key ``dwconv.dwconv``)."""
 
     def __init__(self, dim: int):
         super().__init__()
-        self.dwconv = Conv2d(dim, dim, 3, padding=1, groups=dim)
+        self.dwconv = dw_conv(dim, 3)
 
     def forward(self, x):
         return self.dwconv(x)

@@ -20,7 +20,7 @@ from ceigm_unet_tpu_torch.models.emcad import EMCAD
 from ceigm_unet_tpu_torch.models.groupmamba import (GROUPMAMBA_CONFIGS,
                                                     GroupMamba)
 from ceigm_unet_tpu_torch.models.layers import Conv2d, Linear
-from ceigm_unet_tpu_torch.models.ss2d import SS2DGroup
+from ceigm_unet_tpu_torch.models.ss2d import SS2DGroup, init_ssm_params
 
 
 class _Encoder(nn.Module):
@@ -76,21 +76,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, SS2DGroup):
-            D, R = m.d_inner, m.dt_rank
-            nn.init.uniform_(m.x_proj_weight, -D ** -0.5, D ** -0.5,
-                             generator=g)
-            nn.init.uniform_(m.dt_projs_weight, -R ** -0.5, R ** -0.5,
-                             generator=g)
-            # softplus-inverse of a log-uniform dt in [1e-3, 0.1]
-            r = torch.rand(m.dt_projs_bias.shape, generator=g)
-            dt = torch.exp(r * (math.log(0.1) - math.log(1e-3))
-                           + math.log(1e-3)).clamp_min(1e-4)
-            with torch.no_grad():
-                m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-                n = m.A_logs.shape[-1]
-                m.A_logs.copy_(torch.log(torch.arange(
-                    1, n + 1, dtype=torch.float32)).expand_as(m.A_logs))
-                m.Ds.fill_(1.0)
+            init_ssm_params(m, g)
 
 
 def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",

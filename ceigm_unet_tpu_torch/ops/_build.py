@@ -43,6 +43,9 @@ SIGNATURES = {
     "dysample_grid_sample": [_P] * 3 + [_I] * 8 + [_P],
     "lgag_gate": [_P] * 8 + [_I] * 5 + [_P],
     "scan2d": [_P] * 3 + [_I] * 10 + [_P],
+    "sscan_dir": [_P] * 8 + [_L] * 14 + [_I] * 10 + [_P],
+    "scan_rows": [_P] * 3 + [_I] * 2 + [_P],
+    "selective_scan_n1": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 # launches per C entry point since the last reset_launch_counts()

@@ -18,6 +18,11 @@ package's recompute design (``_quad_ln_bwd_impl``): h again by
 :func:`scan2d`, the LayerNorm backward, then the scan's adjoint by
 :func:`scan2d_adjoint`; both launch ``csrc/scan2d.cu`` for CUDA tensors and
 run :func:`scan2d_ref` / :func:`scan2d_adjoint_ref` for CPU tensors.
+
+:func:`sscan_dir` is the same scan without the LayerNorm, over all the
+channels in every direction (the JAX package's ``sscan_dir``, the legacy
+VMamba SS2D's scan): ``csrc/sscan_dir.cu`` for CUDA tensors, forward only;
+:func:`sscan_dir_ref` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -266,6 +271,65 @@ class QuadScanLnCat(torch.autograd.Function):
     def backward(ctx, go):
         grads = quad_scan_ln_cat_bwd(*ctx.saved_tensors, go, *ctx.geometry)
         return (*grads, None, None, None)
+
+
+def sscan_dir_ref(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
+                  directions: Sequence[int]) -> torch.Tensor:
+    """Plain version of :func:`sscan_dir`: gather each direction's walk,
+    doubling scan, scatter back to pixel order."""
+    B, K, L, D = u.shape
+    order = _orders(H, W, directions, u.device)
+    idx4 = order.view(1, K, L, 1).expand(B, K, L, D)
+    idx3 = order.view(1, K, L).expand(B, K, L)
+    prm = lambda t: t.float().reshape(1, K, 1, D)
+    uf = torch.gather(u.float(), 2, idx4)
+    d = _softplus(torch.gather(dt.float(), 2, idx4) + prm(bias))
+    Bf = torch.gather(Bs.float(), 2, idx3).unsqueeze(-1)
+    Cf = torch.gather(Cs.float(), 2, idx3).unsqueeze(-1)
+    h = _doubling_scan(torch.exp(d * prm(A)), d * uf * Bf)
+    y = Cf * h + prm(Dv) * uf
+    return torch.empty_like(y).scatter_(2, idx4, y)
+
+
+def sscan_dir(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
+              directions: Sequence[int]) -> torch.Tensor:
+    """The d_state = 1 selective scan of each direction k of ``directions``
+    over the H*W pixels (the JAX package's ``sscan_dir``, all K directions
+    in one call): d = softplus(dt + bias), h = exp(d*A)*h_prev + d*u*Bs,
+    y = Cs*h + Dv*u.
+
+    u, dt: (B, K, H*W, D), any strides (u may be a stride-0 view over K);
+    Bs, Cs: (B, K, H*W) per-pixel scalars; all of one dtype. A, bias, Dv:
+    (K, D). Returns y (B, K, H*W, D) fp32 in row-major pixel order. CUDA
+    tensors launch ``csrc/sscan_dir.cu``, forward only; CPU tensors run
+    :func:`sscan_dir_ref`, differentiable."""
+    B, K, L, D = u.shape
+    if L != H * W or dt.shape != u.shape or Bs.shape != (B, K, L) \
+            or Cs.shape != (B, K, L) or len(directions) != K:
+        raise ValueError(f"sscan_dir: shapes u {tuple(u.shape)} dt "
+                         f"{tuple(dt.shape)} Bs {tuple(Bs.shape)} Cs "
+                         f"{tuple(Cs.shape)} H*W {H * W} directions "
+                         f"{tuple(directions)}")
+    if not u.dtype == dt.dtype == Bs.dtype == Cs.dtype:
+        raise TypeError("sscan_dir: u, dt, Bs and Cs must share a dtype")
+    if u.device.type == "cpu":
+        return sscan_dir_ref(u, dt, Bs, Cs, A, bias, Dv, H, W, directions)
+    if u.device.type != "cuda":
+        raise ValueError(f"sscan_dir: no kernel for {u.device}")
+    if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
+        raise ValueError(f"sscan_dir: directions {directions}")
+    _build.check_no_grad("sscan_dir", u, dt, Bs, Cs, A, bias, Dv)
+    _build.check_cuda(u, dt, Bs, Cs)
+    prm = [t.to(device=u.device, dtype=torch.float32).reshape(K, D)
+           .contiguous() for t in (A, bias, Dv)]
+    out = torch.empty((B, K, L, D), dtype=torch.float32, device=u.device)
+    dirs = [int(d) for d in directions] + [1] * (4 - K)
+    p = _build.ptr
+    _build.launch(
+        "sscan_dir", p(u), p(dt), p(Bs), p(Cs), *[p(t) for t in prm], p(out),
+        *u.stride(), *dt.stride(), *Bs.stride(), *Cs.stride(), B, K, H, W, D,
+        *dirs, _build.dtype_code(u))
+    return out
 
 
 def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,

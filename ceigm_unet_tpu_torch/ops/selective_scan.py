@@ -1,0 +1,178 @@
+"""Selective scan (Mamba S6) with the reference CUDA extension's API.
+
+Counterpart of ``ceigm_unet_tpu/ops/selective_scan.py`` ``selective_scan``
+and of the two kernels of its ``pallas`` backend (``ops/scan_pallas.py``):
+
+    a_t = exp(delta_t * A)            # (dim, N)
+    b_t = delta_t * u_t * B_t
+    h_t = a_t * h_{t-1} + b_t
+    y_t = sum_n C_{n,t} * h_{n,t} + D * u_t
+
+u, delta: (batch, dim, L); A: (dim, N); B, C: (batch, G, N, L), or
+(batch, N, L) for G = 1; D, delta_bias: (dim,) or None. Arithmetic is fp32
+whatever the input dtype.
+
+Routing (in place of ``_resolve_backend``): N = 1 with softplus goes to
+:func:`selective_scan_n1`, the fused scan (K12); every other case,
+``return_last_state`` included (it needs h), builds the fp32 scan elements
+in PyTorch and runs :func:`scan_rows` (K11). Both launch
+``csrc/scan_rows.cu`` for CUDA tensors, forward only, and run their plain
+versions for CPU tensors, where autograd runs through them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ceigm_unet_tpu_torch.ops import _build
+from ceigm_unet_tpu_torch.ops.quad_scan import _softplus
+
+
+def _bc4(x: torch.Tensor) -> torch.Tensor:
+    """(batch, N, L) -> (batch, 1, N, L); 4-D passes through."""
+    return x[:, None] if x.dim() == 3 else x
+
+
+def scan_rows_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`scan_rows`: log2(L) vectorised doubling
+    steps along the last axis."""
+    L = a.shape[-1]
+    s = 1
+    while s < L:
+        b = torch.cat([b[..., :s], b[..., s:] + a[..., s:] * b[..., :-s]],
+                      dim=-1)
+        a = torch.cat([a[..., :s], a[..., s:] * a[..., :-s]], dim=-1)
+        s *= 2
+    return b
+
+
+def scan_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t*h_{t-1} + b_t, h_{-1} = 0, along the last axis of fp32
+    (..., L) tensors (the JAX package's ``scan_pallas``)."""
+    if a.shape != b.shape:
+        raise ValueError(f"scan_rows: a {tuple(a.shape)} b {tuple(b.shape)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"scan_rows: takes float32, got {a.dtype}, "
+                        f"{b.dtype}")
+    if a.device.type == "cpu":
+        return scan_rows_ref(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"scan_rows: no kernel for {a.device}")
+    _build.check_no_grad("scan_rows", a, b)
+    L = a.shape[-1]
+    a2, b2 = a.reshape(-1, L).contiguous(), b.reshape(-1, L).contiguous()
+    _build.check_cuda(a2, b2)
+    out = torch.empty_like(a2)
+    p = _build.ptr
+    _build.launch("scan_rows", p(a2), p(b2), p(out), a2.shape[0], L)
+    return out.view(a.shape)
+
+
+def _check_n1(u, delta, A, B4, C4):
+    batch, dim, L = u.shape
+    G = B4.shape[1]
+    if delta.shape != u.shape or A.shape != (dim, 1) \
+            or B4.shape != (batch, G, 1, L) or C4.shape != B4.shape \
+            or dim % G:
+        raise ValueError(f"selective_scan_n1: u {tuple(u.shape)} delta "
+                         f"{tuple(delta.shape)} A {tuple(A.shape)} B "
+                         f"{tuple(B4.shape)} C {tuple(C4.shape)}")
+    return batch, dim, G, L
+
+
+def selective_scan_n1_ref(u, delta, A, B, C, D=None, delta_bias=None,
+                          out_dtype=None) -> torch.Tensor:
+    """Plain version of :func:`selective_scan_n1`."""
+    B4, C4 = _bc4(B), _bc4(C)
+    batch, dim, G, L = _check_n1(u, delta, A, B4, C4)
+    grp = lambda t: t.reshape(batch, G, dim // G, L)
+    x = delta.float()
+    if delta_bias is not None:
+        x = x + delta_bias.float()[:, None]
+    d = grp(_softplus(x))
+    uf = grp(u.float())
+    h = scan_rows_ref(torch.exp(d * A.float().reshape(G, dim // G, 1)),
+                      d * uf * B4.float())
+    y = C4.float() * h
+    if D is not None:
+        y = y + D.float().reshape(G, dim // G, 1) * uf
+    return y.reshape(batch, dim, L).to(out_dtype or u.dtype)
+
+
+def selective_scan_n1(u, delta, A, B, C, D=None, delta_bias=None,
+                      out_dtype=None) -> torch.Tensor:
+    """The fused d_state = 1 selective scan with softplus (the JAX
+    package's ``selective_scan_fused_n1``): one pass over the (batch*dim,
+    L) rows, B and C read per (batch, group). A: (dim, 1). Returns y
+    (batch, dim, L) in ``out_dtype`` (None: u's dtype)."""
+    B4, C4 = _bc4(B), _bc4(C)
+    batch, dim, G, L = _check_n1(u, delta, A, B4, C4)
+    out_dtype = out_dtype or u.dtype
+    if u.device.type == "cpu":
+        return selective_scan_n1_ref(u, delta, A, B4, C4, D, delta_bias,
+                                     out_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan_n1: no kernel for {u.device}")
+    opt = [t for t in (D, delta_bias) if t is not None]
+    _build.check_no_grad("selective_scan_n1", u, delta, A, B4, C4, *opt)
+    # the kernel reads u and delta in one dtype (bf16 only if both are)
+    # and B, C and the per-channel constants in fp32
+    kdt = (torch.bfloat16 if u.dtype == delta.dtype == torch.bfloat16
+           else torch.float32)
+    uk, dk = u.to(kdt).contiguous(), delta.to(kdt).contiguous()
+    f32 = lambda t: t.to(device=u.device, dtype=torch.float32).contiguous()
+    zero = torch.zeros(dim, dtype=torch.float32, device=u.device)
+    prm = [f32(A[:, 0]), zero if delta_bias is None else f32(delta_bias),
+           zero if D is None else f32(D)]
+    Bf, Cf = f32(B4[:, :, 0]), f32(C4[:, :, 0])
+    _build.check_cuda(uk, dk, Bf, Cf, *prm)
+    odt = out_dtype if out_dtype in _build.DTYPE_CODES else torch.float32
+    out = torch.empty((batch, dim, L), dtype=odt, device=u.device)
+    p = _build.ptr
+    _build.launch("selective_scan_n1", p(uk), p(dk), p(Bf), p(Cf),
+                  *[p(t) for t in prm], p(out), batch * dim, dim, G, L,
+                  _build.dtype_code(uk), _build.dtype_code(out))
+    return out.to(out_dtype)
+
+
+def selective_scan(u, delta, A, B, C, D: Optional[torch.Tensor] = None,
+                   delta_bias: Optional[torch.Tensor] = None,
+                   delta_softplus: bool = False,
+                   return_last_state: bool = False, out_dtype=None):
+    """Selective scan with the reference CUDA extension's semantics.
+    ``out_dtype=torch.float32`` with low-precision inputs is the "oflex"
+    variant; None keeps u's dtype. With ``return_last_state`` returns
+    (y, h_L) where h_L is (batch, dim, N) fp32."""
+    B4, C4 = _bc4(B), _bc4(C)
+    out_dtype = out_dtype or u.dtype
+    batch, dim, L = u.shape
+    G, N = B4.shape[1], A.shape[-1]
+    if delta.shape != u.shape or A.shape != (dim, N) \
+            or B4.shape != (batch, G, N, L) or C4.shape != B4.shape \
+            or dim % G:
+        raise ValueError(f"selective_scan: u {tuple(u.shape)} delta "
+                         f"{tuple(delta.shape)} A {tuple(A.shape)} B "
+                         f"{tuple(B4.shape)} C {tuple(C4.shape)}")
+    if N == 1 and delta_softplus and not return_last_state:
+        return selective_scan_n1(u, delta, A, B4, C4, D, delta_bias,
+                                 out_dtype)
+    dg = dim // G
+    uf = u.float()
+    dt = delta.float()
+    if delta_bias is not None:
+        dt = dt + delta_bias.float()[:, None]
+    if delta_softplus:
+        dt = _softplus(dt)
+    a = torch.exp(dt[:, :, None, :] * A.float()[None, :, :, None])
+    b = ((dt * uf).reshape(batch, G, dg, 1, L)
+         * B4.float()[:, :, None]).reshape(batch, dim, N, L)
+    h = scan_rows(a, b)                                  # (batch, dim, N, L)
+    y = torch.einsum("bgdnl,bgnl->bgdl", h.reshape(batch, G, dg, N, L),
+                     C4.float()).reshape(batch, dim, L)
+    if D is not None:
+        y = y + D.float()[None, :, None] * uf
+    y = y.to(out_dtype)
+    if return_last_state:
+        return y, h[..., -1]
+    return y

@@ -46,9 +46,27 @@ exits non-zero without its last line:
    parameter whose true gradient is not 0 (a bias feeding a train-mode
    BatchNorm, or weights behind a ReLU off for every sample, have 0), finite
    ones in the last; ms/step and peak memory; 3 fp32
-   steps; the bf16-vs-fp32 gradient cosine of one batch-2 step.
+   steps; the bf16-vs-fp32 gradient cosine of one batch-2 step;
+10. legacy kernels: the VMamba scans against their plain versions, timed
+   beside them: K10 (``csrc/sscan_dir.cu``) at each of the four 224x224
+   tiny_0230s SS2D shapes at b2 fp32, b2 bf16 and b128 bf16 (phase 3's
+   tolerances); K12 and K11 (``csrc/scan_rows.cu``) at the reference
+   selective-scan speed test's shape (B 128, D 96, N 1, L 4096, bf16 in,
+   fp32 out) and K11 also at B 8, D 96, N 16, L 3136 (fp32 tolerance);
+11. legacy model: the legacy MSVM-UNet (VSSM tiny_0230s + the published
+   decoder, 9 classes, seeded random weights) at 224x224, b2 fp32, on the
+   card against the CPU (phase 4's tolerance), the launches of one forward
+   (K10 20 times, nothing else), and the bf16 logits against fp32;
+12. legacy serving (K10's main path): ``predict_volume`` over phase 5's
+   volumes in bf16 at batch 32 (counters reset just before, read just
+   after), then the b128 bf16 throughput as in phase 6;
+13. selective_scan (K11's and K12's main path): the public op at phase
+   10's shapes (counters reset just before, read just after: K12 once, K11
+   twice), the first two batch rows of each result against the op on the
+   CPU, and each call timed.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``, one entry per kernel
+entry point with its launches on its own main path; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -297,10 +315,13 @@ def kernel_cases(dev):
     }
 
 
-def phase_kernels(dev, gpu):
+def phase_kernels(dev, gpu, kernels):
+    """Each kernel of ``kernels`` (as :func:`kernel_cases` gives them)
+    against its plain version at b2 fp32, b2 bf16 and b128 bf16, and timed
+    at b128 bf16 per forward."""
     results = {}
     bf16 = torch.bfloat16
-    for name, (route, source, replaces, cases) in kernel_cases(dev).items():
+    for name, (route, source, replaces, cases) in kernels.items():
         errs = {(2, torch.float32): 0.0, (2, bf16): 0.0, (128, bf16): 0.0}
         ms = plain_ms = bound = bytes_ms = ops_ms = 0.0
         library_ms = None
@@ -352,8 +373,8 @@ PER_FORWARD = {"quad_scan_ln": 26, "cffn_gemm": 14, "cffn_dw3_gelu": 7,
                "lgag_gate": 3}
 
 
-def check_counts(counts, forwards: int, what: str):
-    want = {k: v * forwards for k, v in PER_FORWARD.items()}
+def check_counts(counts, forwards: int, what: str, per_forward=PER_FORWARD):
+    want = {k: v * forwards for k, v in per_forward.items()}
     if dict(counts) != want:
         fail(f"{what}: kernel launches {dict(counts)}, expected {want}")
 
@@ -413,17 +434,24 @@ def check_bf16(got, want, what: str) -> float:
     return err
 
 
-def phase_serving(model, dev, gpu):
-    from ceigm_unet_tpu_torch.eval.volume import predict_volume
-    from ceigm_unet_tpu_torch.ops import _build
+def synthetic_volumes():
+    """Two seeded synthetic CT volumes of 40 x 512 x 512: smooth CT-like
+    intensities in [0, 1] (low-frequency noise)."""
     rng = np.random.default_rng(SEED)
     volumes = []
     for _ in range(2):
-        # smooth CT-like intensities in [0, 1]: low-frequency noise
         coarse = rng.random((40, 16, 16)).astype(np.float32)
         vol = np.kron(coarse, np.ones((1, 32, 32), np.float32))
         volumes.append(np.clip(vol + 0.05 * rng.standard_normal(
             vol.shape).astype(np.float32), 0, 1))
+    return volumes
+
+
+def phase_serving(model, dev, gpu, per_forward=PER_FORWARD,
+                  what="gm_tiny"):
+    from ceigm_unet_tpu_torch.eval.volume import predict_volume
+    from ceigm_unet_tpu_torch.ops import _build
+    volumes = synthetic_volumes()
     _build.reset_launch_counts()
     times = []
     for vol in volumes:
@@ -433,14 +461,15 @@ def phase_serving(model, dev, gpu):
         if pred.shape != vol.shape or pred.min() < 0 or pred.max() >= 9:
             fail(f"label map {pred.shape} or labels outside [0, 9)")
     counts = dict(_build.launch_counts)
-    check_counts(counts, 4, "serving two 40-slice volumes at batch 32")
-    log(f"serving: 2 volumes (40, 512, 512) bf16 batch 32: "
+    check_counts(counts, 4, f"{what}: serving two 40-slice volumes at batch "
+                 f"32", per_forward)
+    log(f"serving {what}: 2 volumes (40, 512, 512) bf16 batch 32: "
         f"{times[0]:.1f} ms, {times[1]:.1f} ms per volume "
         f"(first includes warm-up) | {gpu}")
     return counts
 
 
-def phase_throughput(model, dev, gpu):
+def phase_throughput(model, dev, gpu, what="gm_tiny"):
     x = torch.randn((128, IMG, IMG, 1), device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED + 2))
     ts = []
@@ -460,11 +489,13 @@ def phase_throughput(model, dev, gpu):
         model.dtype = torch.float32
         want = model(x)
         model.dtype = torch.bfloat16
-    err = check_bf16(logits, want, "b128 bf16 logits vs the fp32 forward")
+    err = check_bf16(logits, want, f"{what} b128 bf16 logits vs the fp32 "
+                     f"forward")
     med = statistics.median(ts)
     spread = (max(ts) - min(ts)) / (2 * med)
-    log(f"throughput b128 224x224 bf16: {128e3 / med:.2f} slices/s, median "
-        f"{med:.3f} ms over {len(ts)} runs, spread +-{100 * spread:.2f}%, "
+    log(f"throughput {what} b128 224x224 bf16: {128e3 / med:.2f} slices/s, "
+        f"median {med:.3f} ms over {len(ts)} runs, spread "
+        f"+-{100 * spread:.2f}%, "
         f"max memory {mem:.2f} GiB; logits vs fp32 on the card max abs err "
         f"{err:.3e} (max|logit| {want.abs().max().item():.3e}, tol "
         f"{BF16_MODEL_TOL}*max) | {gpu}")
@@ -779,6 +810,224 @@ def phase_trainer(dev, gpu):
     return counts
 
 
+# --- phases 10-13: the legacy MSVM-UNet (VMamba) ----------------------------
+
+# tiny_0230s at 224x224: (side, D, SS2D blocks at that shape per forward,
+# encoder + decoder); every one runs K10 once
+LEGACY_SS2D_SHAPES = [(56, 96, 2 + 2), (28, 192, 2 + 2), (14, 384, 8 + 2),
+                      (7, 768, 2)]
+LEGACY_PER_FORWARD = {"sscan_dir": 20}
+# the selective-scan op's shapes: the reference speed test's
+# (tools/bench_scan.py:25; B 128, D 96, N 1, L 4096, bf16 in, fp32 out)
+# with and without softplus, and d_state 16 over a 56x56 map at B 8
+SCAN_CALLS = [("B128 D96 N1 L4096 softplus", (128, 96, 1, 4096), True),
+              ("B128 D96 N1 L4096 no softplus", (128, 96, 1, 4096), False),
+              ("B8 D96 N16 L3136 softplus", (8, 96, 16, 3136), True)]
+# the kernels each call of SCAN_CALLS launches
+SCAN_PATH = {"selective_scan_n1": 1, "scan_rows": 2}
+
+
+def legacy_kernel_cases(dev):
+    """K10 at each tiny_0230s 224x224 SS2D shape, in the form of
+    :func:`kernel_cases`."""
+    from ceigm_unet_tpu_torch.ops import quad_scan
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rnd(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def sscan(S, D):
+        def make(B, dt):
+            K, L = 4, S * S
+            # u: the model's stride-0 view of one activation per direction
+            u = rnd((B, L, D), 1.0, dt)[:, None].expand(B, K, L, D)
+            args = [u, rnd((B, K, L, D), 0.5, dt), rnd((B, K, L), 1.0, dt),
+                    rnd((B, K, L), 1.0, dt), -torch.exp(rnd((K, D), 0.5)),
+                    rnd((K, D), 0.3), rnd((K, D)), S, S, (1, 2, 3, 4)]
+            n, size = B * K * L * D, u.element_size()
+            # read once: u (one activation), dt, Bs, Cs and the (K, D)
+            # constants; y written in fp32. ~12 operations per element:
+            # softplus (5), the decay's exp and product, the drive (2),
+            # the scan FMA, C*h + D*u (2)
+            return Case(lambda: quad_scan.sscan_dir(*args),
+                        lambda: quad_scan.sscan_dir_ref(*args), None,
+                        size * (B * L * D + n + 2 * B * K * L) + 12 * K * D
+                        + 4 * n, 12 * n, "fp32")
+        return make
+
+    return {"sscan_dir": (
+        "cuda", "ceigm_unet_tpu_torch/csrc/sscan_dir.cu",
+        "ceigm_unet_tpu/ops/quad_scan.py:315",
+        [(f"{S}x{S} D{D}", calls, sscan(S, D))
+         for S, D, calls in LEGACY_SS2D_SHAPES])}
+
+
+def scan_inputs(dev, batch, dim, N, L, softplus=True):
+    """Seeded selective-scan inputs after the reference speed test: u,
+    delta, B, C in bf16 (B and C as (batch, 1, N, L)); A, D, delta_bias
+    fp32. Without the softplus, delta + delta_bias is the step size as
+    given, so both are drawn positive (a negative step makes exp(delta*A)
+    > 1, and h overflows fp32 within a few thousand steps)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + N)
+    sign = (lambda t: t) if softplus else torch.abs
+    rnd = lambda shape, scale=1.0, dt=torch.bfloat16: (torch.randn(
+        shape, generator=gen, device=dev) * scale).to(dt)
+    return [rnd((batch, dim, L)), sign(rnd((batch, dim, L), 0.1)),
+            -torch.exp(rnd((dim, N), 0.5, torch.float32)),
+            rnd((batch, 1, N, L)), rnd((batch, 1, N, L)),
+            rnd((dim,), 1.0, torch.float32),
+            sign(rnd((dim,), 0.3, torch.float32))]
+
+
+def phase_scan_kernels(dev, gpu):
+    """K12 and K11 against their plain versions at the selective-scan
+    shapes (fp32 tolerance: both compute in fp32 from the same inputs),
+    timed beside them; the numbers of one pass over SCAN_CALLS (K12 once,
+    K11 twice)."""
+    from ceigm_unet_tpu_torch.ops import selective_scan as ss
+    results = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rows = {}
+    (tag, shape, _), *k11_calls = SCAN_CALLS
+    u, delta, A, B, C, D, bias = scan_inputs(dev, *shape)
+    n = u.numel()
+    rows["selective_scan_n1"] = [(
+        f"{tag}, bf16 -> fp32",
+        lambda: ss.selective_scan_n1(u, delta, A, B, C, D, bias,
+                                     torch.float32),
+        lambda: ss.selective_scan_n1_ref(u, delta, A, B, C, D, bias,
+                                         torch.float32),
+        # u, delta bf16 and B, C read, y fp32 written; ~12 operations per
+        # element (softplus, decay, drive, FMA, C*h + D*u)
+        2 * 2 * n + 2 * 2 * B.numel() + 3 * 4 * D.numel() + 4 * n, 12 * n)]
+    rows["scan_rows"] = []
+    for tag, (batch, dim, N, L), _ in k11_calls:
+        M = batch * dim * N
+        tag = f"M {M} L {L} ({tag})"
+        a = torch.sigmoid(torch.randn((M, L), generator=g, device=dev) * 2
+                          + 2)
+        b = torch.randn((M, L), generator=g, device=dev)
+        # a and b read, h written, fp32; one FMA per element
+        rows["scan_rows"].append((tag, lambda a=a, b=b: ss.scan_rows(a, b),
+                                  lambda a=a, b=b: ss.scan_rows_ref(a, b),
+                                  12 * M * L, 2 * M * L))
+    replaces = {"selective_scan_n1": "ceigm_unet_tpu/ops/scan_pallas.py:189",
+                "scan_rows": "ceigm_unet_tpu/ops/scan_pallas.py:83"}
+    for name, cases in rows.items():
+        err = ms = plain_ms = bound = 0.0
+        for tag, kern, plain, nbytes, ops in cases:
+            e = compare(kern(), plain(), torch.float32)
+            err = max(err, e)
+            k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 3)
+            b_ms = max(nbytes / HBM_BPS, ops / PEAK["fp32"]) * 1e3
+            ms, plain_ms, bound = ms + k_ms, plain_ms + p_ms, bound + b_ms
+            log(f"kernel {name} [{tag}]: {k_ms:.4f} ms, plain {p_ms:.4f} "
+                f"ms, bound {b_ms:.4f} ms (bytes), max abs err {e:.3e} | "
+                f"{gpu}")
+        results[name] = dict(
+            name=name, route="cuda",
+            source="ceigm_unet_tpu_torch/csrc/scan_rows.cu",
+            replaces=replaces[name], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+            library_ms=None)
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_legacy_kernels(dev, gpu):
+    """Phase 10: K10 at every tiny_0230s 224x224 shape (b2 fp32, b2 bf16,
+    b128 bf16), K12 and K11 at the selective-scan shapes."""
+    results = phase_kernels(dev, gpu, legacy_kernel_cases(dev))
+    results.update(phase_scan_kernels(dev, gpu))
+    return results
+
+
+def phase_legacy_model(dev):
+    """Phase 11: tiny_0230s b2 fp32 on the card against the CPU from the
+    same weights, the launches of one forward (K10 only), then the bf16
+    forward against the fp32 CPU logits."""
+    from ceigm_unet_tpu_torch.models import build_legacy_model
+    from ceigm_unet_tpu_torch.ops import _build
+    model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
+                               seed=SEED, device="cpu")
+    x = torch.randn((2, IMG, IMG, 1),
+                    generator=torch.Generator().manual_seed(SEED + 3))
+    with torch.no_grad():
+        want = model(x)
+        model.to(dev)
+        _build.reset_launch_counts()
+        got = model(x.to(dev))
+        torch.cuda.synchronize()
+        check_counts(_build.launch_counts, 1, "one tiny_0230s forward",
+                     LEGACY_PER_FORWARD)
+        got = got.cpu()
+        if got.shape != (2, IMG, IMG, 9) or not bool(
+                torch.isfinite(got).all()):
+            fail(f"legacy logits {tuple(got.shape)} not finite or wrong "
+                 f"shape")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        rtol, atol = MODEL_TOL
+        if bool(((got - want).abs() > atol * scale
+                 + rtol * want.abs()).any()):
+            fail(f"tiny_0230s logits on the card differ from the CPU: max "
+                 f"abs err {err:.3e}, max|logit| {scale:.3e}")
+        model.dtype = torch.bfloat16
+        bf = model(x.to(dev))
+    if bf.dtype != torch.bfloat16:
+        fail(f"legacy bf16 forward returned {bf.dtype} logits")
+    bf_err = check_bf16(bf, want, "tiny_0230s b2 bf16 logits on the card vs "
+                        "fp32 on the CPU")
+    log(f"model tiny_0230s {IMG}x{IMG} b2 fp32: card vs CPU max abs err "
+        f"{err:.3e} (max|logit| {scale:.3e}, tol rtol {rtol} atol "
+        f"{atol}*max); launches {LEGACY_PER_FORWARD}; bf16 vs fp32 CPU max "
+        f"abs err {bf_err:.3e} (tol {BF16_MODEL_TOL}*max)")
+    return model
+
+
+def phase_legacy_serving(model, dev, gpu):
+    """Phase 12: ``predict_volume`` over phase 5's volumes (the K10 main
+    path: launch counts reset just before, read just after), then the b128
+    bf16 throughput."""
+    counts = phase_serving(model, dev, gpu, LEGACY_PER_FORWARD,
+                           "tiny_0230s")
+    phase_throughput(model, dev, gpu, "tiny_0230s")
+    return counts
+
+
+def phase_selective_scan(dev, gpu):
+    """Phase 13: the public ``selective_scan`` at SCAN_CALLS (the K11/K12
+    main path: counts reset just before, read just after), each result's
+    first two batch rows against the op on the CPU; then each call
+    timed."""
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.ops.selective_scan import selective_scan
+    inputs = [(tag, scan_inputs(dev, *shape, sp), sp)
+              for tag, shape, sp in SCAN_CALLS]
+    _build.reset_launch_counts()
+    outs = [selective_scan(*args, delta_softplus=sp, out_dtype=torch.float32)
+            for _, args, sp in inputs]
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    if counts != SCAN_PATH:
+        fail(f"selective_scan path: kernel launches {counts}, expected "
+             f"{SCAN_PATH}")
+    for (tag, args, sp), y in zip(inputs, outs):
+        # rows of different batch entries are independent: the first two
+        # on the CPU check the full-size launch
+        head = [t[:2].cpu() if t.dim() > 2 else t.cpu() for t in args]
+        want = selective_scan(*head, delta_softplus=sp,
+                              out_dtype=torch.float32)
+        e = compare(y[:2].cpu(), want, torch.float32)
+        t_ms = time_ms(lambda: selective_scan(
+            *args, delta_softplus=sp, out_dtype=torch.float32), 10)
+        log(f"selective_scan [{tag}]: {t_ms:.4f} ms per call, first two "
+            f"batch rows vs the CPU max abs err {e:.3e} | {gpu}")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -801,7 +1050,7 @@ def main() -> int:
 
     timed("2 build", _build.library)
     log(f"build: {_build.build().name}")
-    kernels = timed("3 kernels", phase_kernels, dev, gpu)
+    kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev))
     model = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
     timed("6 throughput", phase_throughput, model, dev, gpu)
@@ -810,11 +1059,21 @@ def main() -> int:
     kernels["scan2d"] = timed("7 scan2d", phase_scan2d, dev, gpu)
     timed("8 train step vs CPU", phase_train_vs_cpu, dev, gpu)
     training = timed("9 trainer", phase_trainer, dev, gpu)
-    # each kernel's launches on its own main path: serving for the
-    # forward's kernels, training for K8
+    kernels.update(timed("10 legacy kernels", phase_legacy_kernels, dev,
+                         gpu))
+    model = timed("11 legacy model", phase_legacy_model, dev)
+    legacy = timed("12 legacy serving", phase_legacy_serving, model, dev,
+                   gpu)
+    del model
+    torch.cuda.empty_cache()
+    scan = timed("13 selective_scan", phase_selective_scan, dev, gpu)
+    # each kernel's launches on its own main path: gm_tiny serving for
+    # K1-K5, training for K8, legacy serving for K10, the selective_scan
+    # op for K11 and K12
+    paths = {"scan2d": training, "sscan_dir": legacy, "scan_rows": scan,
+             "selective_scan_n1": scan}
     for name in kernels:
-        kernels[name]["launches"] = (training if name == "scan2d"
-                                     else serving).get(name, 0)
+        kernels[name]["launches"] = paths.get(name, serving).get(name, 0)
     if any(k["launches"] == 0 for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

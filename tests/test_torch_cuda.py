@@ -13,7 +13,7 @@ max|CPU grad| per tensor (tests/test_torch_grad_parity.py's comparison).
 import pytest
 import torch
 
-from ceigm_unet_tpu_torch.models import build_model
+from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
 from ceigm_unet_tpu_torch.ops import _build
 from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
                                           custom_ffn_fused_ref,
@@ -25,7 +25,12 @@ from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
                                                 quad_scan_ln_cat_ref, scan2d,
                                                 scan2d_adjoint,
                                                 scan2d_adjoint_ref,
-                                                scan2d_ref)
+                                                scan2d_ref, sscan_dir,
+                                                sscan_dir_ref)
+from ceigm_unet_tpu_torch.ops.selective_scan import (scan_rows, scan_rows_ref,
+                                                     selective_scan,
+                                                     selective_scan_n1,
+                                                     selective_scan_n1_ref)
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate, lgag_gate_ref
 from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
                                                   make_train_step,
@@ -271,3 +276,108 @@ def test_gm_test_train_step_on_card_matches_cpu(dev):
         if "running" in name:
             torch.testing.assert_close(b.cpu(), cpu_b[name], rtol=1e-4,
                                        atol=1e-5, msg=name)
+
+
+# --- the legacy VMamba slice: K10, K11, K12 --------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# the legacy model's 224x224 stage-1 and stage-4 SS2D shapes; a ragged tile
+@pytest.mark.parametrize("shape", [(2, 56, 56, 96), (2, 7, 7, 768),
+                                   (1, 5, 9, 40)])
+def test_sscan_dir_kernel(dev, shape, dtype):
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D)
+    K, L = 4, H * W
+    # u: the model's stride-0 view over the four directions
+    u = _rand(g, (B, L, D), dev, 1.0, DT[dtype])[:, None].expand(B, K, L, D)
+    dt = _rand(g, (B, K, L, D), dev, 0.5, DT[dtype])
+    BC = [_rand(g, (B, K, L), dev, 1.0, DT[dtype]) for _ in range(2)]
+    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
+           _rand(g, (K, D), dev)]
+    for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+        _close(sscan_dir(u, dt, *BC, *prm, H, W, dirs),
+               sscan_dir_ref(u, dt, *BC, *prm, H, W, dirs), dtype)
+    # dt as the model passes it: a (K, B, L, D) GEMM output, permuted
+    dt_kb = dt.permute(1, 0, 2, 3).contiguous().permute(1, 0, 2, 3)
+    _close(sscan_dir(u, dt_kb, *BC, *prm, H, W, (1, 2, 3, 4)),
+           sscan_dir_ref(u, dt, *BC, *prm, H, W, (1, 2, 3, 4)), dtype)
+
+
+# rows x L: the b8 N16 56x56 shape's L, a chunk's ragged end, L = 1
+@pytest.mark.parametrize("ML", [(13, 3136), (7, 300), (5, 1), (1, 4096)])
+def test_scan_rows_kernel(dev, ML):
+    M, L = ML
+    g = torch.Generator().manual_seed(L)
+    a = torch.sigmoid(_rand(g, (M, L), dev, 2.0) + 2.0)
+    b = _rand(g, (M, L), dev)
+    _close(scan_rows(a, b), scan_rows_ref(a, b), "float32")
+
+
+@pytest.mark.parametrize("dtype,out", [("float32", "float32"),
+                                       ("bfloat16", "float32"),
+                                       ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("G,L,with_opt", [(1, 4096, True), (2, 300, False)])
+def test_selective_scan_n1_kernel(dev, dtype, out, G, L, with_opt):
+    batch, dim = 3, 8
+    g = torch.Generator().manual_seed(L + G)
+    u = _rand(g, (batch, dim, L), dev, 1.0, DT[dtype])
+    delta = _rand(g, (batch, dim, L), dev, 0.5, DT[dtype])
+    A = -torch.exp(_rand(g, (dim, 1), dev, 0.5))
+    B, C = [_rand(g, (batch, G, 1, L), dev, 1.0, DT[dtype]) for _ in "BC"]
+    D, bias = ((_rand(g, (dim,), dev), _rand(g, (dim,), dev, .3))
+               if with_opt else (None, None))
+    got = selective_scan_n1(u, delta, A, B, C, D, bias, DT[out])
+    assert got.dtype == DT[out]
+    _close(got, selective_scan_n1_ref(u, delta, A, B, C, D, bias, DT[out]),
+           "bfloat16" if "bfloat16" in (dtype, out) else "float32")
+
+
+def test_selective_scan_routes_to_its_kernels(dev):
+    """N = 1 with softplus launches K12; N = 4, or return_last_state,
+    launches K11; each result equals the plain route on the CPU."""
+    g = torch.Generator().manual_seed(1)
+    batch, dim, L = 2, 8, 500
+    u, delta = _rand(g, (batch, dim, L), dev), _rand(g, (batch, dim, L), dev)
+    D, bias = _rand(g, (dim,), dev), _rand(g, (dim,), dev, .3)
+    for N, last, launched in ((1, False, "selective_scan_n1"),
+                              (4, False, "scan_rows"),
+                              (1, True, "scan_rows")):
+        A = -torch.exp(_rand(g, (dim, N), dev, 0.5))
+        B, C = [_rand(g, (batch, 2, N, L), dev) for _ in "BC"]
+        args = (u, delta, A, B, C, D, bias)
+        _build.reset_launch_counts()
+        got = selective_scan(*args, delta_softplus=True,
+                             return_last_state=last)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == {launched: 1}
+        want = selective_scan(*[t.cpu() for t in args], delta_softplus=True,
+                              return_last_state=last)
+        for a, b in zip(*((got, want) if last else ((got,), (want,)))):
+            _close(a, b, "float32")
+
+
+def test_scan_kernels_refuse_inputs_that_require_grad(dev):
+    g = torch.Generator().manual_seed(2)
+    a = _rand(g, (2, 8), dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        scan_rows(a, a)
+    u = _rand(g, (1, 4, 6, 8), dev).requires_grad_()
+    bc = _rand(g, (1, 4, 6), dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sscan_dir(u, u, bc, bc, *[_rand(g, (4, 8), dev)] * 3, 2, 3,
+                  (1, 2, 3, 4))
+
+
+def test_vssm_test_legacy_model_on_card_matches_cpu_and_counts_launches(dev):
+    model = build_legacy_model(enc_name="vssm_test", device="cpu")
+    x = torch.randn((2, 64, 64, 1), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = model(x)
+        model.to(dev)
+        _build.reset_launch_counts()
+        got = model(x.to(dev))
+        torch.cuda.synchronize()
+    # 4 encoder + 6 decoder SS2D blocks, all at d_state 1
+    assert dict(_build.launch_counts) == {"sscan_dir": 10}
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
