@@ -1,6 +1,9 @@
-// Shared helpers for the hand-written Hopper kernels: fp32/bf16 loads and
-// stores, and warp reductions. Every kernel computes in fp32.
+// Shared helpers for the hand-written Hopper kernels: fp32/bf16 (and int8)
+// loads and fp32/bf16 stores, and warp reductions. Every kernel computes in
+// fp32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -11,6 +14,7 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {

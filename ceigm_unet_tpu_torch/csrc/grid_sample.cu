@@ -1,14 +1,20 @@
 // DySample's grouped bilinear grid-sample (align_corners=False, border
-// clamp), one grid per group of C/g consecutive channels.
+// clamp), one grid per group of C/g consecutive channels; and the same op
+// with one grid for all channels, for any output size.
 //
 // Replaces: ceigm_unet_tpu/ops/grid_sample.py _gs_banded_groups_impl (via
-// _gs_banded_groups; entry dysample_grid_sample).
+// _gs_banded_groups; entry dysample_grid_sample) as dysample_grid_sample,
+// and the single-grid kernels of grid_sample_bilinear_fused, _gs_banded_impl
+// (2x outputs, banded) and _gs_fused_impl (any output size, dense), as
+// grid_sample_bilinear: the same device code with g = 1.
 //
-// The TPU kernel builds hat-weight tiles and contracts them against an
-// input band on the MXU, and clamps coordinates that leave its band. This
+// The TPU kernels build hat-weight tiles and contract them against the
+// image (or an input band) on the MXU, with the hat weights rounded to
+// bf16, and the banded ones clamp coordinates that leave their band. This
 // kernel computes the exact op (grid_sample_bilinear) at any offset: four
 // taps per output element, unnormalised and clamped as in
-// grid_sample_bilinear, interpolated in fp32, written in x's dtype.
+// grid_sample_bilinear, weights and interpolation in fp32, written in x's
+// dtype. It copies neither the band clamp nor the bf16 hat weights.
 //
 // What bounds it on the H100: memory. Each output element reads 4 input
 // values (mostly L1/L2 hits, neighbouring outputs share taps) and 2 grid
@@ -77,4 +83,18 @@ extern "C" int dysample_grid_sample(const void* x, const float* grid,
   if (dtype == kF32)
     return (int)launch<float>(x, grid, out, B, H, W, C, Ho, Wo, g, s);
   return (int)launch<bf16>(x, grid, out, B, H, W, C, Ho, Wo, g, s);
+}
+
+// x (B, H, W, C), grid (B, Ho, Wo, 2) -> out (B, Ho, Wo, C): one grid for
+// every channel, any output size.
+extern "C" int grid_sample_bilinear(const void* x, const float* grid,
+                                    void* out, int B, int H, int W, int C,
+                                    int Ho, int Wo, int dtype,
+                                    cudaStream_t s) {
+  using namespace ceigm;
+  if (B <= 0 || C <= 0 || Ho <= 0 || Wo <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return (int)launch<float>(x, grid, out, B, H, W, C, Ho, Wo, 1, s);
+  return (int)launch<bf16>(x, grid, out, B, H, W, C, Ho, Wo, 1, s);
 }

@@ -4,7 +4,11 @@
 // _fused_quad_ln_merged_kernel / _fused_quad_ln_kernel / _quad_ln_body,
 // entry sscan_quad_ln_cat) and its batch-last twin
 // ceigm_unet_tpu/ops/quad_scan_bl.py _bl_family (entry
-// sscan_quad_ln_cat_bl). Same math, one layout.
+// sscan_quad_ln_cat_bl). Same math, one layout. As quad_scan_ln_q8 it also
+// replaces the quant=True instance of _sscan_quad_ln_kernel (entry
+// sscan_quad_ln_cat_q8): u and dt arrive as int8 and are dequantized in the
+// prologue by per-(k, channel) scales, before the softplus, so the math past
+// that multiply is the same; the output is bf16 whatever Bs/Cs's dtype.
 //
 // Per channel group k, scanned over the H*W pixels in direction k (1 row-
 // major, 2 column-major, 3/4 those reversed):
@@ -29,6 +33,8 @@
 //
 // u/dt/Bs/Cs are addressed by strides, so the model passes the (B, L, K, D)
 // GEMM outputs as strided views without a transpose copy.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ceigm {
@@ -42,7 +48,9 @@ constexpr int kPerPixel = kThreads / kChunk;   // LN reduction lanes / pixel
 struct ScanArgs {
   const void* u; const void* dt; const void* Bs; const void* Cs;
   const float* A; const float* bias; const float* Dv;
-  const float* ln_s; const float* ln_b; void* out;
+  const float* ln_s; const float* ln_b;
+  const float* scale_u; const float* scale_dt;   // int8 (K, D), or null
+  void* out;
   long long su[4], sdt[4], sbs[3], scs[3];
   int K, H, W, D;
   int dirs[4];
@@ -55,8 +63,11 @@ __device__ __forceinline__ int pixel_of(int t, int dir, int H, int W) {
   return t;
 }
 
-template <typename T>
+// TU: u and dt (float, bf16, or int8 with scale_u/scale_dt); TS: Bs and
+// Cs; TO: out.
+template <typename TU, typename TS, typename TO>
 __global__ void __launch_bounds__(kThreads) quad_scan_ln_kernel(ScanArgs a) {
+  constexpr bool kQuant = std::is_same<TU, int8_t>::value;
   extern __shared__ float smem[];
   const int D = a.D, K = a.K, H = a.H, W = a.W, L = H * W;
   const int Dp = D | 1;                   // odd row stride
@@ -66,8 +77,8 @@ __global__ void __launch_bounds__(kThreads) quad_scan_ln_kernel(ScanArgs a) {
   float* sC = sy + kChunk * Dp;           // [kChunk] per-pixel C
   float* sM = sC + kChunk;                // [kChunk] LN mean
   float* sR = sM + kChunk;                // [kChunk] LN 1/std
-  float* prm = sR + kChunk;               // [5][D] A, bias, Dv, ln_s, ln_b
-  int* sP = reinterpret_cast<int*>(prm + 5 * D);  // [kChunk] pixel index
+  float* prm = sR + kChunk;  // [5|7][D] A, bias, Dv, ln_s, ln_b, scales
+  int* sP = reinterpret_cast<int*>(prm + (kQuant ? 7 : 5) * D);  // [kChunk]
 
   const int b = blockIdx.x / K, k = blockIdx.x % K;
   const int dir = a.dirs[k];
@@ -78,13 +89,17 @@ __global__ void __launch_bounds__(kThreads) quad_scan_ln_kernel(ScanArgs a) {
     prm[2 * D + c] = a.Dv[k * D + c];
     prm[3 * D + c] = a.ln_s[k * D + c];
     prm[4 * D + c] = a.ln_b[k * D + c];
+    if (kQuant) {
+      prm[5 * D + c] = a.scale_u[k * D + c];
+      prm[6 * D + c] = a.scale_dt[k * D + c];
+    }
   }
 
-  const T* u = static_cast<const T*>(a.u) + b * a.su[0] + k * a.su[1];
-  const T* dt = static_cast<const T*>(a.dt) + b * a.sdt[0] + k * a.sdt[1];
-  const T* Bs = static_cast<const T*>(a.Bs) + b * a.sbs[0] + k * a.sbs[1];
-  const T* Cs = static_cast<const T*>(a.Cs) + b * a.scs[0] + k * a.scs[1];
-  T* out = static_cast<T*>(a.out) + (long long)b * L * K * D + k * D;
+  const TU* u = static_cast<const TU*>(a.u) + b * a.su[0] + k * a.su[1];
+  const TU* dt = static_cast<const TU*>(a.dt) + b * a.sdt[0] + k * a.sdt[1];
+  const TS* Bs = static_cast<const TS*>(a.Bs) + b * a.sbs[0] + k * a.sbs[1];
+  const TS* Cs = static_cast<const TS*>(a.Cs) + b * a.scs[0] + k * a.scs[1];
+  TO* out = static_cast<TO*>(a.out) + (long long)b * L * K * D + k * D;
   float h = 0.f;
   __syncthreads();
 
@@ -94,8 +109,13 @@ __global__ void __launch_bounds__(kThreads) quad_scan_ln_kernel(ScanArgs a) {
     for (int e = tid; e < n * D; e += kThreads) {
       const int i = e / D, c = e - i * D;
       const int p = pixel_of(t0 + i, dir, H, W);
-      const float uu = to_f(u[p * a.su[2] + c * a.su[3]]);
-      const float x = to_f(dt[p * a.sdt[2] + c * a.sdt[3]]) + prm[D + c];
+      float uu = to_f(u[p * a.su[2] + c * a.su[3]]);
+      float dtv = to_f(dt[p * a.sdt[2] + c * a.sdt[3]]);
+      if (kQuant) {                       // dequantize, as _quad_ln_body
+        uu *= prm[5 * D + c];
+        dtv *= prm[6 * D + c];
+      }
+      const float x = dtv + prm[D + c];
       const float delta = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
       sa[i * Dp + c] = expf(delta * prm[c]);
       sb[i * Dp + c] = delta * uu * to_f(Bs[p * a.sbs[2]]);
@@ -141,24 +161,25 @@ __global__ void __launch_bounds__(kThreads) quad_scan_ln_kernel(ScanArgs a) {
     // 4. write the normalised chunk, coalesced along channels
     for (int e = tid; e < n * D; e += kThreads) {
       const int i = e / D, c = e - i * D;
-      out[(long long)sP[i] * K * D + c] = from_f<T>(
+      out[(long long)sP[i] * K * D + c] = from_f<TO>(
           (sy[i * Dp + c] - sM[i]) * sR[i] * prm[3 * D + c] + prm[4 * D + c]);
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename TU, typename TS, typename TO>
 cudaError_t launch(const ScanArgs& a, int B, cudaStream_t stream) {
+  const int n_prm = std::is_same<TU, int8_t>::value ? 7 : 5;
   const size_t smem = (size_t)(3 * kChunk * (a.D | 1) + 4 * kChunk +
-                               5 * a.D) * 4;
+                               n_prm * a.D) * 4;
   if (smem > 48 * 1024) {   // D > 112: opt in to more dynamic shared memory
     const cudaError_t e = cudaFuncSetAttribute(
-        quad_scan_ln_kernel<T>,
+        quad_scan_ln_kernel<TU, TS, TO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  quad_scan_ln_kernel<T><<<B * a.K, kThreads, smem, stream>>>(a);
+  quad_scan_ln_kernel<TU, TS, TO><<<B * a.K, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -178,9 +199,32 @@ extern "C" int quad_scan_ln(
   using namespace ceigm;
   if (K < 1 || K > 4 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
-  ScanArgs a{u, dt, Bs, Cs, A, bias, Dv, ln_s, ln_b, out,
+  ScanArgs a{u, dt, Bs, Cs, A, bias, Dv, ln_s, ln_b, nullptr, nullptr, out,
              {su0, su1, su2, su3}, {sd0, sd1, sd2, sd3}, {sb0, sb1, sb2},
              {sc0, sc1, sc2}, K, H, W, D, {dir0, dir1, dir2, dir3}};
-  return (int)(dtype == kF32 ? launch<float>(a, B, stream)
-                             : launch<bf16>(a, B, stream));
+  return (int)(dtype == kF32 ? launch<float, float, float>(a, B, stream)
+                             : launch<bf16, bf16, bf16>(a, B, stream));
+}
+
+// The int8 form: u and dt int8 at the given strides, dequantized by
+// scale_u/scale_dt (K, D); Bs and Cs in `dtype`; out (B, L, K*D) bf16.
+extern "C" int quad_scan_ln_q8(
+    const void* u, const void* dt, const void* Bs, const void* Cs,
+    const float* A, const float* bias, const float* Dv, const float* ln_s,
+    const float* ln_b, const float* scale_u, const float* scale_dt, void* out,
+    long long su0, long long su1, long long su2, long long su3,
+    long long sd0, long long sd1, long long sd2, long long sd3,
+    long long sb0, long long sb1, long long sb2,
+    long long sc0, long long sc1, long long sc2,
+    int B, int K, int H, int W, int D, int dir0, int dir1, int dir2,
+    int dir3, int dtype, cudaStream_t stream) {
+  using namespace ceigm;
+  if (K < 1 || K > 4 || D < 1 || D > kMaxD || scale_u == nullptr ||
+      scale_dt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ScanArgs a{u, dt, Bs, Cs, A, bias, Dv, ln_s, ln_b, scale_u, scale_dt, out,
+             {su0, su1, su2, su3}, {sd0, sd1, sd2, sd3}, {sb0, sb1, sb2},
+             {sc0, sc1, sc2}, K, H, W, D, {dir0, dir1, dir2, dir3}};
+  return (int)(dtype == kF32 ? launch<int8_t, float, bf16>(a, B, stream)
+                             : launch<int8_t, bf16, bf16>(a, B, stream));
 }

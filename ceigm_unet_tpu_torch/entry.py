@@ -23,11 +23,17 @@ SYNAPSE_STEPS_PER_EPOCH = 2211 // 48
 
 def entry(device: Union[str, torch.device] = "cuda",
           dtype: torch.dtype = torch.float32,
-          seed: int = 0) -> Tuple[MSVMUNet, torch.Tensor]:
+          seed: int = 0, quant_scan: bool = False, dwconv: str = "library",
+          dysample_grouped: bool = True) -> Tuple[MSVMUNet, torch.Tensor]:
     """(model, x): the seeded flagship model in eval mode on ``device`` and
-    a zero (1, 224, 224, 1) NHWC input there; ``model(x)`` gives logits."""
+    a zero (1, 224, 224, 1) NHWC input there; ``model(x)`` gives logits.
+    ``quant_scan`` (``CEIGM_QUANT``), ``dwconv`` (``CEIGM_BLDW``) and
+    ``dysample_grouped`` (``CEIGM_GS_GROUP``) select the model's kernel
+    routes, as ``build_model`` describes; with ``quant_scan`` the forward
+    runs under ``torch.no_grad()``."""
     model = build_model(num_classes=9, enc_name="gm_tiny", dtype=dtype,
-                        device=device, seed=seed)
+                        device=device, seed=seed, quant_scan=quant_scan,
+                        dwconv=dwconv, dysample_grouped=dysample_grouped)
     return model, torch.zeros((1, 224, 224, 1), device=device)
 
 
@@ -69,17 +75,21 @@ def synthetic_batch(batch: int, size: int = 224, num_classes: int = 9,
 
 def train_entry(device: Union[str, torch.device] = "cuda",
                 dtype: torch.dtype = torch.float32, batch: int = 48,
-                seed: int = 0
+                seed: int = 0, dwconv: str = "library",
+                dysample_grouped: bool = True
                 ) -> Tuple[MSVMUNet, Callable, Dict[str, torch.Tensor]]:
     """(model, step, batch): the seeded gm_tiny model in training mode on
     ``device`` computing in ``dtype`` (parameters fp32), its training step
     with the Synapse recipe (AdamW 5e-4 / wd 1e-3, per-epoch cosine to 1e-6
     over 300 epochs, DiceCE 0.4/0.6), and one seeded synthetic batch.
     ``step(batch, freeze_encoder, generator)`` returns {"loss"}; the
-    generator draws the decoder's stochastic-depth masks."""
+    generator draws the decoder's stochastic-depth masks. ``dwconv`` and
+    ``dysample_grouped`` select kernel routes as in ``build_model``
+    (``quant_scan`` is inference-only)."""
     cfg = SYNAPSE_CONFIG
     model = build_model(num_classes=cfg.num_classes, enc_name=cfg.enc_name,
-                        dtype=dtype, device=device, seed=seed).train()
+                        dtype=dtype, device=device, seed=seed, dwconv=dwconv,
+                        dysample_grouped=dysample_grouped).train()
     optimizer = make_optimizer(param_groups(model), cfg.weight_decay)
     step = make_train_step(
         model, optimizer,

@@ -21,7 +21,8 @@ from ceigm_unet_tpu_torch.models.groupmamba import BlockMamba
 from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                                 bilinear_upsample,
                                                 channel_shuffle)
-from ceigm_unet_tpu_torch.ops.grid_sample import dysample_grid_sample
+from ceigm_unet_tpu_torch.ops.grid_sample import (
+    dysample_grid_sample, dysample_grid_sample_pergroup)
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_fold, lgag_gate
 
 
@@ -161,12 +162,19 @@ class EUCB2(nn.Module):
 class DySample(nn.Module):
     """Dynamic 2x upsampler ('lp' style, 4 groups) + EUCB2. The base grid is
     i + sin(pi*(i+1)/S) (reference quirk); each group of consecutive
-    channels is sampled bilinearly with its own grid, border-clamped."""
+    channels is sampled bilinearly with its own grid, border-clamped.
+    ``grouped`` (the counterpart of ``CEIGM_GS_GROUP``): True samples all
+    groups in one :func:`dysample_grid_sample`; False regroups the channels
+    and samples them with the single-grid op
+    (:func:`dysample_grid_sample_pergroup`). Both compute the same
+    function."""
 
     SCALE, GROUPS = 2, 4
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 grouped: bool = True):
         super().__init__()
+        self.grouped = grouped
         oc = 2 * self.GROUPS * self.SCALE ** 2
         self.offset = nn.Sequential(
             Conv2d(in_channels, oc, 1),
@@ -203,24 +211,26 @@ class DySample(nn.Module):
         shuffle = lambda c: c.permute(0, 1, 4, 2, 5, 3).reshape(
             B, H * s, W * s, g)
         grid = torch.stack([shuffle(cx), shuffle(cy)], dim=-1)
-        return self.eu(dysample_grid_sample(x, grid))
+        sample = (dysample_grid_sample if self.grouped
+                  else dysample_grid_sample_pergroup)
+        return self.eu(sample(x, grid))
 
 
 class _CmLayer(nn.Module):
-    def __init__(self, dim: int, drop_paths: Sequence[float]):
+    def __init__(self, dim: int, drop_paths: Sequence[float], **routes):
         super().__init__()
         self.blocks = nn.ModuleList(
-            BlockMamba(dim, 4.0, float(p), use_custom_ffn=True, norm_eps=1e-5)
-            for p in drop_paths)
+            BlockMamba(dim, 4.0, float(p), use_custom_ffn=True, norm_eps=1e-5,
+                       **routes) for p in drop_paths)
 
 
 class Front(nn.Module):
     """BlockMamba per drop-path rate, with the CustomFfn (reference Front
     / cm)."""
 
-    def __init__(self, dim: int, drop_paths: Sequence[float]):
+    def __init__(self, dim: int, drop_paths: Sequence[float], **routes):
         super().__init__()
-        self.cm_layer = _CmLayer(dim, drop_paths)
+        self.cm_layer = _CmLayer(dim, drop_paths, **routes)
 
     def forward(self, x, generator=None):
         for blk in self.cm_layer.blocks:
@@ -231,12 +241,16 @@ class Front(nn.Module):
 class EMCAD(nn.Module):
     """The decoder. ``channels``: the reversed encoder pyramid, e.g.
     (448, 348, 128, 64). Input: 4 NHWC features, coarse to fine; output:
-    logits upsampled 4x from the finest scale."""
+    logits upsampled 4x from the finest scale. ``quant_scan`` and ``dwconv``
+    select the Front blocks' :class:`QuadGroupSS2D` routes,
+    ``dysample_grouped`` the upsamplers' (:class:`DySample`)."""
 
     FRONT_DEPTHS = (3, 2, 2)
 
     def __init__(self, channels: Sequence[int] = (448, 348, 128, 64),
-                 num_classes: int = 9, drop_path_rate: float = 0.2):
+                 num_classes: int = 9, drop_path_rate: float = 0.2,
+                 quant_scan: bool = False, dwconv: str = "library",
+                 dysample_grouped: bool = True):
         super().__init__()
         ch = list(channels)
         # stochastic depth rate -> 0 over the 7 Front blocks (train only)
@@ -246,10 +260,12 @@ class EMCAD(nn.Module):
             self.add_module(f"cc{idx}", SplitChannelsOddEven(c))
             self.add_module(f"para{idx}", ParallelAttentionFusion(c))
         for i, idx in enumerate((3, 2, 1)):
-            self.add_module(f"eucb{idx}", DySample(ch[i], ch[i + 1]))
+            self.add_module(f"eucb{idx}", DySample(ch[i], ch[i + 1],
+                                                   dysample_grouped))
             self.add_module(f"lgag{idx}", LGAG(ch[i + 1] // 2))
             self.add_module(f"f{i + 1}", Front(
-                ch[i + 1], dpr[starts[i]:starts[i + 1]]))
+                ch[i + 1], dpr[starts[i]:starts[i + 1]],
+                quant_scan=quant_scan, dwconv=dwconv))
         self.out_head1 = Conv2d(ch[3], num_classes, 1)
 
     def _mscam(self, d, idx):

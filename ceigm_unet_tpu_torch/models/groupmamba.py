@@ -22,10 +22,12 @@ class GroupMambaLayer(QuadGroupSS2D):
     """Modulated group mamba: LN -> channel-affinity SE -> QuadGroupSS2D *
     skip_scale * x -> channel modulation -> the SAME LN again (a reference
     quirk kept for weight parity) -> Linear proj. The four scan groups are
-    this module's own ``mamba_g1..g4``, as in the reference."""
+    this module's own ``mamba_g1..g4``, as in the reference; ``quant_scan``
+    and ``dwconv`` select :class:`QuadGroupSS2D`'s routes."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim)
+    def __init__(self, dim: int, quant_scan: bool = False,
+                 dwconv: str = "library"):
+        super().__init__(dim, quant_scan, dwconv)
         self.norm = LayerNorm(dim, eps=1e-5)
         self.fc1 = Linear(dim, dim // 16)
         self.fc2 = Linear(dim // 16, dim)
@@ -44,9 +46,10 @@ class BlockMamba(nn.Module):
     """x + DropPath(GroupMambaLayer(x)); x + DropPath(FFN(LN(x)))."""
 
     def __init__(self, dim: int, mlp_ratio: float, drop_path: float = 0.0,
-                 use_custom_ffn: bool = False, norm_eps: float = 1e-5):
+                 use_custom_ffn: bool = False, norm_eps: float = 1e-5,
+                 quant_scan: bool = False, dwconv: str = "library"):
         super().__init__()
-        self.attn = GroupMambaLayer(dim)
+        self.attn = GroupMambaLayer(dim, quant_scan, dwconv)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=norm_eps)
         hidden = int(dim * mlp_ratio)
@@ -104,12 +107,15 @@ GROUPMAMBA_CONFIGS = {
 
 
 class GroupMamba(nn.Module):
-    """4-stage backbone -> [C1@H/4, C2@H/8, C3@H/16, C4@H/32], NHWC."""
+    """4-stage backbone -> [C1@H/4, C2@H/8, C3@H/16, C4@H/32], NHWC.
+    ``quant_scan`` and ``dwconv`` select every block's
+    :class:`QuadGroupSS2D` routes."""
 
     def __init__(self, stem_hidden_dim: int = 32,
                  embed_dims: Sequence[int] = (64, 128, 348, 448),
                  mlp_ratios: Sequence[int] = (8, 8, 4, 4),
-                 depths: Sequence[int] = (3, 4, 9, 3)):
+                 depths: Sequence[int] = (3, 4, 9, 3),
+                 quant_scan: bool = False, dwconv: str = "library"):
         super().__init__()
         self.depths = tuple(depths)
         for i, (dim, ratio, depth) in enumerate(
@@ -119,7 +125,8 @@ class GroupMamba(nn.Module):
                 Stem(3, stem_hidden_dim, dim) if i == 0
                 else DownSample(embed_dims[i - 1], dim))
             self.add_module(f"block{i + 1}", nn.ModuleList(
-                BlockMamba(dim, ratio, norm_eps=1e-6) for _ in range(depth)))
+                BlockMamba(dim, ratio, norm_eps=1e-6, quant_scan=quant_scan,
+                           dwconv=dwconv) for _ in range(depth)))
             self.add_module(f"norm{i + 1}", LayerNorm(dim, eps=1e-6))
 
     def forward(self, x, generator=None):

@@ -32,14 +32,18 @@ class _Encoder(nn.Module):
 class MSVMUNet(nn.Module):
     def __init__(self, num_classes: int = 9, enc_name: str = "gm_tiny",
                  dtype: torch.dtype = torch.float32,
-                 decoder_drop_path_rate: float = 0.2):
+                 decoder_drop_path_rate: float = 0.2,
+                 quant_scan: bool = False, dwconv: str = "library",
+                 dysample_grouped: bool = True):
         super().__init__()
         cfg = GROUPMAMBA_CONFIGS[enc_name]
         self.dtype = dtype
-        self.encoder = _Encoder(**cfg)
+        routes = dict(quant_scan=quant_scan, dwconv=dwconv)
+        self.encoder = _Encoder(**cfg, **routes)
         self.decoder = EMCAD(channels=tuple(cfg["embed_dims"])[::-1],
                              num_classes=num_classes,
-                             drop_path_rate=decoder_drop_path_rate)
+                             drop_path_rate=decoder_drop_path_rate,
+                             dysample_grouped=dysample_grouped, **routes)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -83,13 +87,30 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
                 dtype: torch.dtype = torch.float32,
                 device: Union[str, torch.device] = "cuda",
                 seed: int = 0,
-                decoder_drop_path_rate: float = 0.2) -> MSVMUNet:
+                decoder_drop_path_rate: float = 0.2,
+                quant_scan: bool = False, dwconv: str = "library",
+                dysample_grouped: bool = True) -> MSVMUNet:
     """Flagship factory: random weights from a CPU ``torch.Generator``
     seeded with ``seed``, in eval mode, on ``device`` (the card unless the
     caller asks for ``"cpu"``). Parameters stay fp32; ``dtype`` is the
     compute dtype. ``decoder_drop_path_rate`` is the decoder's stochastic
-    depth (the encoder's is 0, as in the reference)."""
+    depth (the encoder's is 0, as in the reference).
+
+    Three routes, each the counterpart of a JAX package switch that selects
+    a TPU kernel, with that package's defaults (no route adds a parameter,
+    so every route loads the same weights):
+
+    - ``quant_scan`` (``CEIGM_QUANT=1``): int8 storage of the quad scan's u
+      and dt, scanned by ``quad_scan_ln_cat_q8``; inference only.
+    - ``dwconv`` (``CEIGM_BLDW``): ``"library"`` runs the quad blocks'
+      depthwise conv as ``F.conv2d``, ``"kernel"`` as ``dwconv3x3``.
+    - ``dysample_grouped`` (``CEIGM_GS_GROUP``): True samples DySample's
+      four groups in one ``dysample_grid_sample``; False takes the per-group
+      route through the single-grid ``grid_sample_bilinear_fused``.
+    """
     model = MSVMUNet(num_classes=num_classes, enc_name=enc_name, dtype=dtype,
-                     decoder_drop_path_rate=decoder_drop_path_rate)
+                     decoder_drop_path_rate=decoder_drop_path_rate,
+                     quant_scan=quant_scan, dwconv=dwconv,
+                     dysample_grouped=dysample_grouped)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -7,7 +7,11 @@ own direction, through one fused scan + group-LN op. Counterpart of
 of four per-group SS2D modules ``mamba_g1..g4`` (``convert/torch_import.py``
 ``_quad_ss2d`` stacks them for JAX); the forward runs the K-grouped
 projections as block-diagonal GEMMs and hands the (B, L, K, D) GEMM outputs
-to :func:`quad_scan_ln_cat` as strided views.
+to :func:`quad_scan_ln_cat` as strided views. Two build arguments select the
+JAX package's switched TPU kernels: ``dwconv="kernel"`` (``CEIGM_BLDW``) runs
+the depthwise conv as :func:`dwconv3x3` on the in-projection output in
+place, and ``quant_scan=True`` (``CEIGM_QUANT=1``) stores u and dt as int8
+for :func:`quad_scan_ln_cat_q8` (inference only).
 
 :class:`SS2D`: the VMamba flavour, K directions over all channels (the
 legacy MSVM-UNet's encoder and decoder op).
@@ -23,7 +27,9 @@ from torch import nn
 from ceigm_unet_tpu_torch.models.layers import (Conv2d, LayerNorm, Linear,
                                                 dw_conv)
 from ceigm_unet_tpu_torch.ops.cross_scan import cross_merge_1d, cross_scan_1d
-from ceigm_unet_tpu_torch.ops.quad_scan import quad_scan_ln_cat, sscan_dir
+from ceigm_unet_tpu_torch.ops.dwconv import dwconv3x3
+from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
+                                                quad_scan_ln_cat_q8, sscan_dir)
 from ceigm_unet_tpu_torch.ops.selective_scan import selective_scan
 
 
@@ -47,14 +53,40 @@ class SS2DGroup(nn.Module):
         self.out_proj = Linear(D, d_model, bias=False)
 
 
+def q8(t: torch.Tensor):
+    """int8 storage of a (B, L, K, D) activation, as the JAX package's
+    ``q8``: per-(K, D) amax over B and L in fp32, scale max(amax, 1e-6) /
+    127, round half to even, clamp to +-127. Returns (int8 values, (K, D)
+    fp32 scales). The scales depend on the whole batch."""
+    tf = t.float()
+    scale = tf.abs().amax(dim=(0, 1)).clamp_min(1e-6) / 127.0
+    return torch.round(tf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
 class QuadGroupSS2D(nn.Module):
     """(B, H, W, C) -> (B, H, W, C); group k of C/4 channels is scanned in
-    direction ``DIRECTIONS[k]``."""
+    direction ``DIRECTIONS[k]``.
+
+    ``dwconv``: ``"library"`` runs the depthwise conv as ``F.conv2d``;
+    ``"kernel"`` as :func:`dwconv3x3` (``csrc/dwconv3.cu`` on the card), the
+    counterpart of ``CEIGM_BLDW`` other than ``xla``, at every batch (the
+    JAX switch acts only inside its batch >= 64 sandwich).
+    ``quant_scan``: the counterpart of ``CEIGM_QUANT=1``: xc and dt are
+    stored as int8 (:func:`q8`) and scanned by :func:`quad_scan_ln_cat_q8`,
+    whose bf16 output is cast to the compute dtype before the z-gate. It
+    applies at every batch (the JAX gate takes it only below batch 64 or
+    with ``CEIGM_BLAST`` <= 1) and is inference-only: a forward with inputs
+    that require grad raises."""
 
     DIRECTIONS = (1, 2, 3, 4)
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, quant_scan: bool = False,
+                 dwconv: str = "library"):
         super().__init__()
+        if dwconv not in ("library", "kernel"):
+            raise ValueError(f"QuadGroupSS2D: dwconv {dwconv!r}, expected "
+                             f"'library' or 'kernel'")
+        self.quant_scan, self.dwconv = quant_scan, dwconv
         for k in range(len(self.DIRECTIONS)):
             self.add_module(f"mamba_g{k + 1}",
                             SS2DGroup(dim // len(self.DIRECTIONS)))
@@ -65,9 +97,10 @@ class QuadGroupSS2D(nn.Module):
 
     def fused_weights(self, dt: torch.dtype):
         """The tensors the forward derives from the weights alone: the
-        block-diagonal projections and the depthwise conv in ``dt``, and the
-        scan's (K, D) parameters (A, dt bias, D, LN scale, LN bias) in fp32.
-        """
+        block-diagonal projections in ``dt``, the depthwise conv in ``dt``
+        (fp32 for the kernel, which takes fp32 taps as the TPU kernel does),
+        and the scan's (K, D) parameters (A, dt bias, D, LN scale, LN bias)
+        in fp32."""
         gs = self.groups()
         D = gs[0].d_inner
         bd = lambda ws: torch.block_diag(*ws).to(dt)
@@ -75,10 +108,11 @@ class QuadGroupSS2D(nn.Module):
         w_xz = torch.cat([bd([w[:D].t() for w in w_in]),
                           bd([w[D:].t() for w in w_in])], dim=1)
         stack = lambda ps: torch.stack([p.reshape(D) for p in ps]).float()
+        conv_dt = torch.float32 if self.dwconv == "kernel" else dt
         return dict(
             w_xz=w_xz,
-            conv_w=torch.cat([g.conv2d.weight for g in gs]).to(dt),
-            conv_b=torch.cat([g.conv2d.bias for g in gs]).to(dt),
+            conv_w=torch.cat([g.conv2d.weight for g in gs]).to(conv_dt),
+            conv_b=torch.cat([g.conv2d.bias for g in gs]).to(conv_dt),
             w_x=bd([g.x_proj_weight[0].t() for g in gs]),
             w_dt=bd([g.dt_projs_weight[0].t() for g in gs]),
             w_out=bd([g.out_proj.weight.t() for g in gs]),
@@ -97,16 +131,31 @@ class QuadGroupSS2D(nn.Module):
         fw = self.fused_weights(x.dtype)
         xz = x.reshape(B * L, C) @ fw["w_xz"]                  # (BL, 2Din)
         z = F.silu(xz[:, Din:])
-        xc = F.conv2d(xz[:, :Din].reshape(B, H, W, Din).permute(0, 3, 1, 2),
-                      fw["conv_w"], fw["conv_b"], padding=1, groups=Din)
-        xc = F.silu(xc).permute(0, 2, 3, 1).reshape(B * L, Din)
+        if self.dwconv == "kernel":
+            # the channel slice of xz read in place (row stride 2*Din)
+            xc = F.silu(dwconv3x3(xz[:, :Din].view(B, H, W, Din),
+                                  fw["conv_w"], fw["conv_b"]))
+        else:
+            xc = F.conv2d(xz[:, :Din].reshape(B, H, W, Din).permute(
+                0, 3, 1, 2), fw["conv_w"], fw["conv_b"], padding=1,
+                groups=Din)
+            xc = F.silu(xc).permute(0, 2, 3, 1)
+        xc = xc.reshape(B * L, Din)
         x_dbl = (xc @ fw["w_x"]).view(B, L, K, R + 2)
         dts = x_dbl[..., :R].reshape(B * L, K * R)
         dtv = (dts @ fw["w_dt"]).view(B, L, K, D)
-        y = quad_scan_ln_cat(
-            xc.view(B, L, K, D).permute(0, 2, 1, 3), dtv.permute(0, 2, 1, 3),
-            x_dbl[..., R].permute(0, 2, 1), x_dbl[..., R + 1].permute(0, 2, 1),
-            *fw["scan"], H, W, self.DIRECTIONS)                # (B, L, Din)
+        BC = (x_dbl[..., R].permute(0, 2, 1),
+              x_dbl[..., R + 1].permute(0, 2, 1))              # (B, K, L)
+        if self.quant_scan:
+            (uq, su), (dq, sdt) = q8(xc.view(B, L, K, D)), q8(dtv)
+            y = quad_scan_ln_cat_q8(
+                uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3), su, sdt, *BC,
+                *fw["scan"], H, W, self.DIRECTIONS).to(x.dtype)
+        else:
+            y = quad_scan_ln_cat(
+                xc.view(B, L, K, D).permute(0, 2, 1, 3),
+                dtv.permute(0, 2, 1, 3), *BC, *fw["scan"], H, W,
+                self.DIRECTIONS)                               # (B, L, Din)
         out = (y.view(B * L, Din) * z) @ fw["w_out"]
         return out.view(B, H, W, C)
 

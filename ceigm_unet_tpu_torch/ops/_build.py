@@ -37,10 +37,14 @@ _L = ctypes.c_longlong
 # argument of each.
 SIGNATURES = {
     "quad_scan_ln": [_P] * 10 + [_L] * 14 + [_I] * 10 + [_P],
+    "quad_scan_ln_q8": [_P] * 12 + [_L] * 14 + [_I] * 10 + [_P],
     "cffn_gemm": [_P] * 4 + [_I] * 6 + [_P],
     "cffn_dw3_gelu": [_P] * 4 + [_I] * 4 + [_P],
     "cffn_inception7": [_P] * 4 + [_I] * 5 + [_P],
     "dysample_grid_sample": [_P] * 3 + [_I] * 8 + [_P],
+    "grid_sample_bilinear": [_P] * 3 + [_I] * 7 + [_P],
+    "dwconv3x3": [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P],
+    "dwconv3x3_flip": [_P] * 3 + [_L] * 3 + [_I] * 5 + [_P],
     "lgag_gate": [_P] * 8 + [_I] * 5 + [_P],
     "scan2d": [_P] * 3 + [_I] * 10 + [_P],
     "sscan_dir": [_P] * 8 + [_L] * 14 + [_I] * 10 + [_P],

@@ -9,6 +9,14 @@ consecutive channels). For CUDA tensors the latter launches
 :class:`DySampleGridSample`, whose backward is the vector-Jacobian product
 of the plain version (the JAX package's ``_gs_banded_groups_bwd``): a
 coordinate clamped at the border gets a zero gradient.
+
+:func:`grid_sample_bilinear_fused` is the single-grid op for any output
+size (the JAX package's entry of the same name, whose TPU kernels are
+``_gs_banded_impl`` for 2x outputs and ``_gs_fused_impl`` otherwise): the
+same device code with one group, exact where the banded TPU kernel clamps
+to its band. :func:`dysample_grid_sample_pergroup` is DySample's per-group
+route through it (``_dysample_ref``: regroup, sample, regroup back), taken
+when the model is built with ``dysample_grouped=False``.
 """
 from __future__ import annotations
 
@@ -44,19 +52,85 @@ def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return top * (1 - wy) + bot * wy
 
 
-def dysample_grid_sample_ref(x: torch.Tensor,
-                             grid: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`dysample_grid_sample`: regroup the channels
-    and sample each group with its own grid."""
+def _per_group(sample, x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Regroup (B, H, W, C) into (B*g, H, W, C/g), sample each group with
+    its own grid by ``sample`` and regroup back (``_dysample_ref``)."""
     B, H, W, C = x.shape
     Ho, Wo, g = grid.shape[1:4]
     cg = C // g
     xg = x.reshape(B, H, W, g, cg).permute(0, 3, 1, 2, 4).reshape(
         B * g, H, W, cg)
     gg = grid.permute(0, 3, 1, 2, 4).reshape(B * g, Ho, Wo, 2)
-    out = grid_sample_bilinear(xg, gg)
+    out = sample(xg, gg)
     return out.reshape(B, g, Ho, Wo, cg).permute(0, 2, 3, 1, 4).reshape(
         B, Ho, Wo, C)
+
+
+def dysample_grid_sample_ref(x: torch.Tensor,
+                             grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dysample_grid_sample`: regroup the channels
+    and sample each group with its own grid."""
+    return _per_group(grid_sample_bilinear, x, grid)
+
+
+def _gs_launch(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    B, H, W, C = x.shape
+    Ho, Wo = grid.shape[1:3]
+    xc = x.contiguous()
+    gf = grid.to(dtype=torch.float32).contiguous()
+    _build.check_cuda(xc, gf)
+    out = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
+    p = _build.ptr
+    _build.launch("grid_sample_bilinear", p(xc), p(gf), p(out), B, H, W, C,
+                  Ho, Wo, _build.dtype_code(x))
+    return out
+
+
+class GridSampleBilinear(torch.autograd.Function):
+    """Autograd op of :func:`grid_sample_bilinear_fused`; its backward is
+    the vector-Jacobian product of the plain version, as ``_gs_fused_bwd``
+    and ``_gs_banded_bwd`` differentiate the exact mm form."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.save_for_backward(x, grid)
+        if x.device.type == "cpu":
+            return grid_sample_bilinear(x, grid)
+        return _gs_launch(x, grid)
+
+    @staticmethod
+    def backward(ctx, go):
+        return recompute_vjp(grid_sample_bilinear, ctx.saved_tensors,
+                             ctx.needs_input_grad, go)
+
+
+def grid_sample_bilinear_fused(x: torch.Tensor,
+                               grid: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C), grid (B, Ho, Wo, 2) -> (B, Ho, Wo, C) in x's dtype,
+    any output size: ``csrc/grid_sample.cu`` for CUDA tensors,
+    :func:`grid_sample_bilinear` for CPU tensors; differentiable."""
+    if x.dim() != 4 or grid.dim() != 4 or grid.shape[0] != x.shape[0] \
+            or grid.shape[-1] != 2:
+        raise ValueError(f"grid_sample_bilinear_fused: x {tuple(x.shape)} "
+                         f"grid {tuple(grid.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grid_sample_bilinear_fused: no kernel for "
+                         f"{x.device}")
+    return GridSampleBilinear.apply(x, grid)
+
+
+def dysample_grid_sample_pergroup(x: torch.Tensor,
+                                  grid: torch.Tensor) -> torch.Tensor:
+    """DySample's per-group route (the JAX package's ``_dysample_ref``, its
+    path with ``CEIGM_GS_GROUP=0``): the same function as
+    :func:`dysample_grid_sample`, with the channel regroup done by two
+    permute copies around :func:`grid_sample_bilinear_fused`."""
+    B, H, W, C = x.shape
+    if grid.dim() != 5 or grid.shape[0] != B or grid.shape[-1] != 2 \
+            or C % grid.shape[3] != 0:
+        raise ValueError(f"dysample_grid_sample_pergroup: x "
+                         f"{tuple(x.shape)} grid {tuple(grid.shape)}")
+    return _per_group(grid_sample_bilinear_fused, x, grid)
 
 
 def _dysample_launch(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

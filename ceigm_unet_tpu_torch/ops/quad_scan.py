@@ -19,6 +19,10 @@ package's recompute design (``_quad_ln_bwd_impl``): h again by
 :func:`scan2d_adjoint`; both launch ``csrc/scan2d.cu`` for CUDA tensors and
 run :func:`scan2d_ref` / :func:`scan2d_adjoint_ref` for CPU tensors.
 
+:func:`quad_scan_ln_cat_q8` is the forward with u and dt stored as int8
+(the JAX package's ``sscan_quad_ln_cat_q8``): the same kernel instantiated
+for int8 operands, dequantized in its prologue, bf16 out; inference only.
+
 :func:`sscan_dir` is the same scan without the LayerNorm, over all the
 channels in every direction (the JAX package's ``sscan_dir``, the legacy
 VMamba SS2D's scan): ``csrc/sscan_dir.cu`` for CUDA tensors, forward only;
@@ -181,25 +185,30 @@ def quad_scan_ln_cat_ref(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
 
 
 def _quad_scan_ln_launch(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
-                        H: int, W: int, directions: Sequence[int]):
+                        H: int, W: int, directions: Sequence[int],
+                        scales=(), name: str = "quad_scan_ln"):
+    """Launch K1 (``quad_scan_ln``: out in u's dtype) or, with the int8
+    dequantization ``scales`` (su, sdt), its int8 form (``quad_scan_ln_q8``:
+    out bf16)."""
     B, K, L, D = u.shape
     if u.device.type != "cuda":
-        raise ValueError(f"quad_scan_ln_cat: no kernel for {u.device}")
+        raise ValueError(f"{name}: no kernel for {u.device}")
     if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
-        raise ValueError(f"quad_scan_ln_cat: directions {directions}")
+        raise ValueError(f"{name}: directions {directions}")
     if D > MAX_D:
-        raise ValueError(f"quad_scan_ln_cat: the kernel takes D <= {MAX_D}"
+        raise ValueError(f"{name}: the kernel takes D <= {MAX_D}"
                          f" channels per group, got {D}")
     _build.check_cuda(u, dt, Bs, Cs)
     prm = [t.to(device=u.device, dtype=torch.float32).reshape(K, D)
-           .contiguous() for t in (A, bias, Dv, ln_scale, ln_bias)]
-    out = torch.empty((B, L, K * D), dtype=u.dtype, device=u.device)
+           .contiguous() for t in (A, bias, Dv, ln_scale, ln_bias, *scales)]
+    out = torch.empty((B, L, K * D), dtype=torch.bfloat16 if scales
+                      else u.dtype, device=u.device)
     dirs = [int(d) for d in directions] + [1] * (4 - K)
     p = _build.ptr
     _build.launch(
-        "quad_scan_ln", p(u), p(dt), p(Bs), p(Cs), *[p(t) for t in prm],
+        name, p(u), p(dt), p(Bs), p(Cs), *[p(t) for t in prm],
         p(out), *u.stride(), *dt.stride(), *Bs.stride(), *Cs.stride(),
-        B, K, H, W, D, *dirs, _build.dtype_code(u))
+        B, K, H, W, D, *dirs, _build.dtype_code(Bs))
     return out
 
 
@@ -352,3 +361,54 @@ def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
         raise ValueError(f"quad_scan_ln_cat: no kernel for {u.device}")
     return QuadScanLnCat.apply(u, dt, Bs, Cs, A, bias, Dv, ln_scale,
                                ln_bias, H, W, tuple(directions))
+
+
+def quad_scan_ln_cat_q8_ref(u_q, dt_q, su, sdt, Bs, Cs, A, bias, Dv,
+                            ln_scale, ln_bias, H: int, W: int,
+                            directions: Sequence[int]):
+    """Plain version of :func:`quad_scan_ln_cat_q8`: dequantize, run
+    :func:`quad_scan_ln_cat_ref`, round to bf16."""
+    K, D = u_q.shape[1], u_q.shape[3]
+    deq = lambda q, s: q.float() * s.float().reshape(1, K, 1, D)
+    return quad_scan_ln_cat_ref(
+        deq(u_q, su), deq(dt_q, sdt), Bs, Cs, A, bias, Dv, ln_scale, ln_bias,
+        H, W, directions).to(torch.bfloat16)
+
+
+def quad_scan_ln_cat_q8(u_q, dt_q, su, sdt, Bs, Cs, A, bias, Dv, ln_scale,
+                        ln_bias, H: int, W: int, directions: Sequence[int]):
+    """:func:`quad_scan_ln_cat` with u and dt stored as int8 (the JAX
+    package's ``sscan_quad_ln_cat_q8``): u_q, dt_q (B, K, H*W, D) int8, any
+    strides; su, sdt (K, D) their dequantization scales (u = u_q * su);
+    Bs, Cs (B, K, H*W) fp32 or bf16. Returns (B, H*W, K*D) in bf16. CUDA
+    tensors launch ``csrc/quad_scan_ln.cu``'s int8 form, CPU tensors run
+    :func:`quad_scan_ln_cat_q8_ref`. Forward only: inputs that require
+    grad raise NotImplementedError."""
+    B, K, L, D = u_q.shape
+    if L != H * W or dt_q.shape != u_q.shape or Bs.shape != (B, K, L) \
+            or Cs.shape != (B, K, L) or len(directions) != K \
+            or su.shape != (K, D) or sdt.shape != (K, D):
+        raise ValueError(f"quad_scan_ln_cat_q8: shapes u_q {tuple(u_q.shape)}"
+                         f" dt_q {tuple(dt_q.shape)} su {tuple(su.shape)} "
+                         f"sdt {tuple(sdt.shape)} Bs {tuple(Bs.shape)} Cs "
+                         f"{tuple(Cs.shape)} H*W {H * W} directions "
+                         f"{tuple(directions)}")
+    if u_q.dtype != torch.int8 or dt_q.dtype != torch.int8 \
+            or Bs.dtype != Cs.dtype:
+        raise TypeError(f"quad_scan_ln_cat_q8: u_q {u_q.dtype}, dt_q "
+                        f"{dt_q.dtype} must be int8 and Bs {Bs.dtype}, Cs "
+                        f"{Cs.dtype} share a dtype")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (su, sdt, Bs, Cs, A, bias, Dv,
+                                      ln_scale, ln_bias)):
+        raise NotImplementedError(
+            "quad_scan_ln_cat_q8: int8 storage of u and dt is inference-only "
+            "(int8 rounding has no gradient); run it under torch.no_grad(), "
+            "or build the model with quant_scan=False to train")
+    args = (u_q, dt_q, su, sdt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias, H, W,
+            directions)
+    if u_q.device.type == "cpu":
+        return quad_scan_ln_cat_q8_ref(*args)
+    return _quad_scan_ln_launch(u_q, dt_q, Bs, Cs, A, bias, Dv, ln_scale,
+                                ln_bias, H, W, directions, scales=(su, sdt),
+                                name="quad_scan_ln_q8")

@@ -63,7 +63,28 @@ exits non-zero without its last line:
 13. selective_scan (K11's and K12's main path): the public op at phase
    10's shapes (counters reset just before, read just after: K12 once, K11
    twice), the first two batch rows of each result against the op on the
-   CPU, and each call timed.
+   CPU, and each call timed;
+14. route kernels: the single-grid grid-sample (``csrc/grid_sample.cu``
+   ``grid_sample_bilinear``; K6/K7) at DySample's three per-group 224x224
+   shapes and one non-2x size, K13 (``csrc/dwconv3.cu``) forward and flip
+   mode and K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln_q8``) at every
+   gm_tiny quad-block shape, each at b2 fp32, b2 bf16 and b128 bf16
+   against its plain version (phase 3's tolerances; K14's bf16 output at
+   the bf16 one), timed beside it, the library call and the bound; then
+   DySample's per-group route against the grouped K4 at b128 bf16;
+15. kernel-depthwise and per-group-DySample model: gm_tiny built with
+   ``dwconv="kernel", dysample_grouped=False``: b2 fp32 card vs CPU
+   (phase 4's tolerance) with the launches of one forward (K13 26, the
+   single-grid grid-sample 3, the grouped one 0); b128 bf16 throughput;
+   one b2 fp32 train step card vs CPU (phase 8's check; K13's flip mode 26
+   times in the backward); the route's trainer (its training main path),
+   2 frozen + 3 unfrozen b48 bf16 steps, ms/step;
+16. int8 serving (K14's main path): gm_tiny built with
+   ``quant_scan=True``: b2 card vs CPU at the bf16 tolerance with the
+   launches of one forward (K14 26, K1 0); its bf16 logits within 0.05 *
+   max|logit| of the same weights' bf16 logits without int8 storage;
+   ``predict_volume`` over phase 5's volumes and the b128 throughput; a
+   forward that requires grad raises the inference-only error.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path; the last line is
@@ -148,9 +169,11 @@ class Case:
     function needs: bytes (inputs read once, outputs written once) and
     operations, with the peak rate of their type."""
 
-    def __init__(self, kern, plain, library, nbytes, ops, peak):
+    def __init__(self, kern, plain, library, nbytes, ops, peak, tol=None):
         self.kern, self.plain, self.library = kern, plain, library
         self.nbytes, self.ops, self.peak = nbytes, ops, peak
+        # the dtype whose tolerance holds the result (default: the inputs')
+        self.tol = tol
 
     def bound_ms(self):
         return max(self.nbytes / HBM_BPS, self.ops / PEAK[self.peak]) * 1e3
@@ -315,10 +338,10 @@ def kernel_cases(dev):
     }
 
 
-def phase_kernels(dev, gpu, kernels):
+def phase_kernels(dev, gpu, kernels, per="forward"):
     """Each kernel of ``kernels`` (as :func:`kernel_cases` gives them)
     against its plain version at b2 fp32, b2 bf16 and b128 bf16, and timed
-    at b128 bf16 per forward."""
+    at b128 bf16 per ``per`` (the forward, or the backward of one)."""
     results = {}
     bf16 = torch.bfloat16
     for name, (route, source, replaces, cases) in kernels.items():
@@ -328,7 +351,7 @@ def phase_kernels(dev, gpu, kernels):
         for tag, calls, make in cases:
             for batch, dt in errs:
                 case = make(batch, dt)
-                err = compare(case.kern(), case.plain(), dt)
+                err = compare(case.kern(), case.plain(), case.tol or dt)
                 errs[batch, dt] = max(errs[batch, dt], err)
             # case: the batch-128 bf16 call, already checked
             k_ms, p_ms = time_ms(case.kern, 10), time_ms(case.plain, 3)
@@ -342,14 +365,14 @@ def phase_kernels(dev, gpu, kernels):
                 lib_ms = time_ms(case.library, 10)
                 library_ms = (library_ms or 0.0) + calls * lib_ms
                 lib = f"{lib_ms:.4f} ms"
-            log(f"kernel {name} [{tag}] x{calls}/forward: b128 bf16 "
+            log(f"kernel {name} [{tag}] x{calls}/{per}: b128 bf16 "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, bound "
                 f"{case.bound_ms():.4f} ms ({case.bound_by()}), max abs err "
                 f"{err:.3e} | {gpu}")
             del case
         log(f"kernel {name}: max abs err b2 fp32 "
             f"{errs[2, torch.float32]:.3e}, b2 bf16 {errs[2, bf16]:.3e}, "
-            f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 forward "
+            f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 {per} "
             f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, library "
             f"{library_ms}, bound {bound:.4f} ms")
         results[name] = dict(
@@ -379,11 +402,17 @@ def check_counts(counts, forwards: int, what: str, per_forward=PER_FORWARD):
         fail(f"{what}: kernel launches {dict(counts)}, expected {want}")
 
 
-def phase_model(dev):
+def phase_model(dev, routes=None, per_forward=PER_FORWARD, what="gm_tiny",
+                fp32_tol=None):
+    """gm_tiny built with ``routes`` (build_model's route arguments) at b2
+    fp32 on the card against the CPU (phase 4's tolerance, or
+    ``fp32_tol`` * max|logit| alone), the launches of one forward, then the
+    bf16 forward against the fp32 CPU logits. Returns the model in bf16 on
+    the card, and the input and CPU logits."""
     from ceigm_unet_tpu_torch.models import build_model
     from ceigm_unet_tpu_torch.ops import _build
     model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
-                        device="cpu")
+                        device="cpu", **(routes or {}))
     x = torch.randn((2, IMG, IMG, 1),
                     generator=torch.Generator().manual_seed(SEED + 1))
     t0 = time.perf_counter()
@@ -395,17 +424,17 @@ def phase_model(dev):
     with torch.no_grad():
         got = model(x.to(dev))
     torch.cuda.synchronize()
-    check_counts(_build.launch_counts, 1, "one gm_tiny forward")
+    check_counts(_build.launch_counts, 1, f"one {what} forward", per_forward)
     got = got.cpu()
     if got.shape != (2, IMG, IMG, 9) or not bool(torch.isfinite(got).all()):
         fail(f"logits {tuple(got.shape)} not finite or wrong shape")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    rtol, atol = MODEL_TOL
+    rtol, atol = (0.0, fp32_tol) if fp32_tol else MODEL_TOL
     if bool(((got - want).abs() > atol * scale + rtol * want.abs()).any()):
-        fail(f"gm_tiny logits on the card differ from the CPU: max abs err "
+        fail(f"{what} logits on the card differ from the CPU: max abs err "
              f"{err:.3e}, max|logit| {scale:.3e}")
-    log(f"model gm_tiny 224x224 b2 fp32: card vs CPU max abs err {err:.3e} "
+    log(f"model {what} 224x224 b2 fp32: card vs CPU max abs err {err:.3e} "
         f"(max|logit| {scale:.3e}, tol rtol {rtol} atol {atol}*max); "
         f"launches {dict(_build.launch_counts)}; CPU forward {cpu_s:.1f} s")
     model.dtype = torch.bfloat16
@@ -413,11 +442,11 @@ def phase_model(dev):
         got = model(x.to(dev))
     if got.dtype != torch.bfloat16:
         fail(f"bf16 forward returned {got.dtype} logits")
-    bf_err = check_bf16(got, want, "gm_tiny b2 bf16 logits on the card vs "
+    bf_err = check_bf16(got, want, f"{what} b2 bf16 logits on the card vs "
                         "fp32 on the CPU")
-    log(f"model gm_tiny 224x224 b2 bf16: card vs fp32 CPU max abs err "
+    log(f"model {what} 224x224 b2 bf16: card vs fp32 CPU max abs err "
         f"{bf_err:.3e} (max|logit| {scale:.3e}, tol {BF16_MODEL_TOL}*max)")
-    return model
+    return model, x, want
 
 
 def check_bf16(got, want, what: str) -> float:
@@ -470,6 +499,7 @@ def phase_serving(model, dev, gpu, per_forward=PER_FORWARD,
 
 
 def phase_throughput(model, dev, gpu, what="gm_tiny"):
+    """The b128 bf16 forward, timed; returns (slices/s, peak GiB)."""
     x = torch.randn((128, IMG, IMG, 1), device=dev, generator=torch.Generator(
         device=dev).manual_seed(SEED + 2))
     ts = []
@@ -499,6 +529,7 @@ def phase_throughput(model, dev, gpu, what="gm_tiny"):
         f"max memory {mem:.2f} GiB; logits vs fp32 on the card max abs err "
         f"{err:.3e} (max|logit| {want.abs().max().item():.3e}, tol "
         f"{BF16_MODEL_TOL}*max) | {gpu}")
+    return 128e3 / med, mem
 
 
 # --- phases 7-9: training ---------------------------------------------------
@@ -587,8 +618,9 @@ def grad_tolerance_used(got, want) -> float:
     return ((got - want).abs() / tol).max().item()
 
 
-def phase_train_vs_cpu(dev, gpu):
-    """One unfrozen gm_tiny train step (fp32, TF32 off, b2) on the card
+def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP):
+    """One unfrozen gm_tiny train step (fp32, TF32 off, b2; the model built
+    with ``routes``, launching ``per_step``) on the card
     and on the CPU from the same weights, batch and drop-path masks (one
     seeded CPU generator on each side): loss, every gradient, the BN
     running statistics, and the card's launches. The CPU step runs again
@@ -609,7 +641,7 @@ def phase_train_vs_cpu(dev, gpu):
             + [("card", dev, threads)]):
         torch.set_num_threads(n_threads)
         model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
-                            device=device)
+                            device=device, **(routes or {}))
         step = _trainer(model, device)
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -620,9 +652,9 @@ def phase_train_vs_cpu(dev, gpu):
     torch.set_num_threads(threads)
     (l_cpu, m_cpu, _, cpu_s), (l_dev, m_dev, counts, dev_s) = \
         runs["cpu"], runs["card"]
-    if counts != PER_TRAIN_STEP:
+    if counts != per_step:
         fail(f"one train step: kernel launches {counts}, expected "
-             f"{PER_TRAIN_STEP}")
+             f"{per_step}")
     if not abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu):
         fail(f"train-step loss on the card {l_dev} vs the CPU {l_cpu}")
     cpu_p = dict(m_cpu.named_parameters())
@@ -666,7 +698,8 @@ def phase_train_vs_cpu(dev, gpu):
                      f"{e.max().item():.3e}")
             stat_err = max(stat_err, e.max().item())
     n = sum(1 for _ in m_dev.parameters())
-    log(f"train step gm_tiny {PHASE8_IMG}x{PHASE8_IMG} b2 fp32 card vs CPU:"
+    log(f"train step gm_tiny {routes or ''} {PHASE8_IMG}x{PHASE8_IMG} b2 "
+        f"fp32 card vs CPU:"
         f" loss {l_dev:.6f} vs {l_cpu:.6f}; {n} gradients within their "
         f"tolerance or {NOISE_MARGIN}x their own reorder floor (nearest: "
         f"{worst[0]} at {rows[worst[0]][0]:.3f} of its limit); BN running "
@@ -698,49 +731,56 @@ def _flat_grad(model):
     return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
 
 
+def _train_run(dev, dtype, frozen_flags, routes=None):
+    """``entry.train_entry`` at TRAIN_BATCH built with ``routes``, stepped
+    once per flag (True: encoder frozen), launch counters reset just before
+    and read just after; fails if a frozen step moves the encoder."""
+    from ceigm_unet_tpu_torch.entry import train_entry
+    from ceigm_unet_tpu_torch.ops import _build
+    model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED,
+                                     **(routes or {}))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    enc0 = [p.detach().clone() for p in model.encoder.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, times, zero, dead = [], [], None, set()
+    first = frozen_flags.index(False)
+    for i, frozen in enumerate(frozen_flags):
+        hooks = watch_dead_relus(model, dead) if i == first else []
+        t0 = time.perf_counter()
+        losses.append(step(batch, freeze_encoder=frozen,
+                           generator=gen)["loss"].item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        for h in hooks:
+            h.remove()
+        if frozen and not all(torch.equal(p, q) for p, q in zip(
+                model.encoder.parameters(), enc0)):
+            fail(f"step {i}: an encoder parameter moved while frozen")
+        if i == first:
+            # the first step through the whole graph
+            zero = [n for n, p in model.named_parameters()
+                    if not BN_CANCELLED.search(n) and n not in dead
+                    and not bool(p.grad.abs().max() > 0)]
+    counts = dict(_build.launch_counts)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    return (model, enc0, losses, times, counts, mem, zero, sorted(dead),
+            batch, gen)
+
+
 def phase_trainer(dev, gpu):
     """The trainer at full width (the training main path): gm_tiny b48
     224x224 bf16 (fp32 parameters), 2 frozen-encoder steps then 8 unfrozen
     ones; then 3 fp32 steps, and the bf16-vs-fp32 gradient cosine of one b2
-    step. Returns the launch counts of the 10 bf16 steps."""
+    step. Returns the launch counts of the 10 bf16 steps and the median
+    unfrozen bf16 ms/step."""
     from ceigm_unet_tpu_torch.entry import train_entry
     from ceigm_unet_tpu_torch.losses import dice_ce_loss
-    from ceigm_unet_tpu_torch.ops import _build
-
-    def run(dtype, frozen_flags):
-        model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        enc0 = [p.detach().clone() for p in model.encoder.parameters()]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        losses, times, zero, dead = [], [], None, set()
-        first = frozen_flags.index(False)
-        for i, frozen in enumerate(frozen_flags):
-            hooks = watch_dead_relus(model, dead) if i == first else []
-            t0 = time.perf_counter()
-            losses.append(step(batch, freeze_encoder=frozen,
-                               generator=gen)["loss"].item())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            for h in hooks:
-                h.remove()
-            if frozen and not all(torch.equal(p, q) for p, q in zip(
-                    model.encoder.parameters(), enc0)):
-                fail(f"step {i}: an encoder parameter moved while frozen")
-            if i == first:
-                # the first step through the whole graph
-                zero = [n for n, p in model.named_parameters()
-                        if not BN_CANCELLED.search(n) and n not in dead
-                        and not bool(p.grad.abs().max() > 0)]
-        counts = dict(_build.launch_counts)
-        mem = torch.cuda.max_memory_allocated() / 2**30
-        return (model, enc0, losses, times, counts, mem, zero, sorted(dead),
-                batch, gen)
 
     flags = [True] * 2 + [False] * 8
-    model, enc0, losses, times, counts, mem, zero, dead, batch, gen = run(
-        torch.bfloat16, flags)
+    model, enc0, losses, times, counts, mem, zero, dead, batch, gen = \
+        _train_run(dev, torch.bfloat16, flags)
     want = {k: v * 10 for k, v in PER_TRAIN_STEP.items()}
     want["scan2d"] = 2 * FROZEN_SCANS + 8 * PER_TRAIN_STEP["scan2d"]
     if counts != want:
@@ -785,8 +825,8 @@ def phase_trainer(dev, gpu):
     del model, enc0, batch
     torch.cuda.empty_cache()
 
-    model, _, losses32, times32, _, mem32, *_ = run(torch.float32,
-                                                    [False] * 3)
+    model, _, losses32, times32, _, mem32, *_ = _train_run(
+        dev, torch.float32, [False] * 3)
     med32 = statistics.median(times32)
     log(f"trainer gm_tiny b{TRAIN_BATCH} 224x224 fp32 (TF32 off): losses "
         f"{[round(v, 5) for v in losses32]}; median {med32:.3f} ms/step "
@@ -807,7 +847,7 @@ def phase_trainer(dev, gpu):
         fail(f"bf16 vs fp32 gradient cosine {cos:.6f} < {BF16_GRAD_COSINE}")
     log(f"trainer b2 bf16 vs fp32 gradients: cosine {cos:.6f} (fails below "
         f"{BF16_GRAD_COSINE})")
-    return counts
+    return counts, med
 
 
 # --- phases 10-13: the legacy MSVM-UNet (VMamba) ----------------------------
@@ -1027,6 +1067,253 @@ def phase_selective_scan(dev, gpu):
     torch.cuda.empty_cache()
     return counts
 
+# --- phases 14-16: the kernel routes (K6/K7, K13, K14) ----------------------
+
+# gm_tiny 224x224 quad blocks per shape: (side, channels Din, blocks); each
+# runs K13 once forward (and its flip mode once backward) on the kernel
+# route, and K14 once on the int8 route (D per group = Din / 4)
+QUAD_SHAPES = [(56, 64, 5), (28, 128, 6), (14, 348, 12), (7, 448, 3)]
+# DySample's per-group images at 224x224 (4 groups): (H, W, C / 4)
+PERGROUP_SHAPES = [(7, 7, 112), (14, 14, 87), (28, 28, 32)]
+KERNEL_ROUTE = dict(dwconv="kernel", dysample_grouped=False)
+# launches of one forward on each route, and of one unfrozen train step
+PER_FORWARD_KERNEL_ROUTE = {
+    **{k: v for k, v in PER_FORWARD.items() if k != "dysample_grid_sample"},
+    "dwconv3x3": 26, "grid_sample_bilinear": 3}
+PER_STEP_KERNEL_ROUTE = {
+    **{k: v for k, v in PER_TRAIN_STEP.items()
+       if k != "dysample_grid_sample"},
+    "dwconv3x3": 26, "dwconv3x3_flip": 26, "grid_sample_bilinear": 3}
+PER_FORWARD_INT8 = {**{k: v for k, v in PER_FORWARD.items()
+                       if k != "quad_scan_ln"}, "quad_scan_ln_q8": 26}
+
+
+def route_kernel_cases(dev):
+    """The route kernels, in the form of :func:`kernel_cases`: the
+    single-grid grid-sample at DySample's per-group shapes and one non-2x
+    size; K13 forward and K14 at every quad-block shape. K13's flip mode is
+    returned apart (its time is per backward)."""
+    import torch.nn.functional as F
+    from ceigm_unet_tpu_torch.models.ss2d import q8
+    from ceigm_unet_tpu_torch.ops import dwconv, grid_sample, quad_scan
+    gen = torch.Generator().manual_seed(SEED)
+
+    def rnd(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def gs1(H, W, C, Ho, Wo, groups):
+        def make(B, dt):
+            n = groups * B
+            x = rnd((n, H, W, C), 1.0, dt)
+            ys = (torch.arange(Ho) + 0.5) * 2 / Ho - 1
+            xs = (torch.arange(Wo) + 0.5) * 2 / Wo - 1
+            base = torch.stack(torch.meshgrid(ys, xs, indexing="ij")[::-1],
+                               dim=-1)
+            grid = base[None].to(dev) + rnd((n, Ho, Wo, 2), 0.1 / H)
+            # F.grid_sample on the channels-last NCHW view of x, with the
+            # grid in x's dtype (it requires one dtype)
+            xv, gv = x.permute(0, 3, 1, 2), grid.to(dt)
+            P = n * Ho * Wo
+            return Case(lambda: grid_sample.grid_sample_bilinear_fused(
+                            x, grid),
+                        lambda: grid_sample.grid_sample_bilinear(x, grid),
+                        lambda: F.grid_sample(xv, gv, mode="bilinear",
+                                              padding_mode="border",
+                                              align_corners=False),
+                        x.element_size() * (n * H * W * C + P * C) + 8 * P,
+                        8 * P * C + 20 * P, "fp32")
+        return make
+
+    def dw(S, C, flip):
+        def make(B, dt):
+            w, b = rnd((C, 1, 3, 3), 0.3), rnd((C,), 0.1)
+            if flip:
+                # the backward's cotangent: a contiguous (B, H, W, C)
+                x = rnd((B, S, S, C), 1.0, dt)
+                kern = lambda: dwconv.dwconv3x3_flip(x, w)
+                plain = lambda: dwconv.dwconv3x3_ref(x, w, flip=True)
+            else:
+                # the channel slice of the in-projection output, in place
+                x = rnd((B * S * S, 2 * C), 1.0, dt)[:, :C].view(B, S, S, C)
+                kern = lambda: dwconv.dwconv3x3(x, w, b)
+                plain = lambda: dwconv.dwconv3x3_ref(x, w, b)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            wd, bd = w.to(dt), b.to(dt)
+            library = ((lambda: F.conv_transpose2d(x_nchw, wd, padding=1,
+                                                   groups=C)) if flip
+                       else (lambda: F.conv2d(x_nchw, wd, bd, padding=1,
+                                              groups=C)))
+            n = B * S * S * C
+            # x read once, the result written, the 9 taps (and bias);
+            # 9 FMAs per element
+            return Case(kern, plain, library, 2 * n * x.element_size()
+                        + 40 * C, 18 * n, "fp32")
+        return make
+
+    def quad8(S, D):
+        def make(B, dt):
+            K, L = 4, S * S
+            (uq, su), (dq, sdt) = [q8(rnd((B, L, K, D), s)) for s in (1.0,
+                                                                    0.5)]
+            args = [uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3), su, sdt,
+                    rnd((B, K, L), 1.0, dt), rnd((B, K, L), 1.0, dt),
+                    -torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3),
+                    rnd((K, D)), 1 + rnd((K, D), 0.1), rnd((K, D), 0.1),
+                    S, S, (1, 2, 3, 4)]
+            n = B * K * L * D
+            size = torch.tensor([], dtype=dt).element_size()
+            # int8 u and dt read, bf16 out written, Bs and Cs; K1's ~22
+            # operations per element and the two dequantizing products
+            return Case(lambda: quad_scan.quad_scan_ln_cat_q8(*args),
+                        lambda: quad_scan.quad_scan_ln_cat_q8_ref(*args),
+                        None, 4 * n + 2 * size * B * K * L + 28 * K * D,
+                        24 * n, "fp32", tol=torch.bfloat16)
+        return make
+
+    src = "ceigm_unet_tpu_torch/csrc/"
+    forward = {
+        "grid_sample_bilinear": (
+            "cuda", src + "grid_sample.cu",
+            "ceigm_unet_tpu/ops/grid_sample.py:527 (K6), :259 (K7)",
+            [(f"{H}->{2 * H} C{C} x4 groups", 1, gs1(H, W, C, 2 * H, 2 * W,
+                                                     4))
+             for H, W, C in PERGROUP_SHAPES]
+            + [("14x14->20x24 C87 (not on the path)", 0,
+                gs1(14, 14, 87, 20, 24, 1))]),
+        "dwconv3x3": ("cuda", src + "dwconv3.cu",
+                      "ceigm_unet_tpu/ops/quad_scan_bl.py:574",
+                      [(f"{S}x{S} C{C}", n, dw(S, C, False))
+                       for S, C, n in QUAD_SHAPES]),
+        "quad_scan_ln_q8": ("cuda", src + "quad_scan_ln.cu",
+                            "ceigm_unet_tpu/ops/quad_scan.py:542 quant=True",
+                            [(f"{S}x{S} D{C // 4}", n, quad8(S, C // 4))
+                             for S, C, n in QUAD_SHAPES]),
+    }
+    backward = {"dwconv3x3_flip": (
+        "cuda", src + "dwconv3.cu",
+        "ceigm_unet_tpu/ops/quad_scan_bl.py:574 flip=True",
+        [(f"{S}x{S} C{C}", n, dw(S, C, True)) for S, C, n in QUAD_SHAPES])}
+    return forward, backward
+
+
+def phase_route_kernels(dev, gpu):
+    """Phase 14: each route kernel against its plain version at b2 fp32, b2
+    bf16 and b128 bf16 (K14's bf16 output at the bf16 tolerance), timed
+    per b128 bf16 forward (K13's flip mode per backward); then DySample's
+    two routes at b128 bf16, the per-group route (regroup copies and the
+    single-grid kernel) beside the grouped kernel K4."""
+    from ceigm_unet_tpu_torch.ops import grid_sample
+    forward, backward = route_kernel_cases(dev)
+    results = phase_kernels(dev, gpu, forward)
+    results.update(phase_kernels(dev, gpu, backward, per="backward"))
+    gen = torch.Generator().manual_seed(SEED)
+    total = {"per-group route": 0.0, "grouped K4": 0.0}
+    for H, W, cg in PERGROUP_SHAPES:
+        x = torch.randn((128, H, W, 4 * cg), generator=gen).to(
+            dev, torch.bfloat16)
+        grid = (torch.rand((128, 2 * H, 2 * W, 4, 2), generator=gen) * 2
+                - 1).to(dev)
+        ms = {"per-group route": time_ms(
+                  lambda: grid_sample.dysample_grid_sample_pergroup(x, grid),
+                  10),
+              "grouped K4": time_ms(
+                  lambda: grid_sample.dysample_grid_sample(x, grid), 10)}
+        for k, v in ms.items():
+            total[k] += v
+        log(f"DySample {H}->{2 * H} C{4 * cg} b128 bf16: per-group route "
+            f"{ms['per-group route']:.4f} ms, grouped K4 "
+            f"{ms['grouped K4']:.4f} ms | {gpu}")
+    log(f"DySample per b128 bf16 forward: per-group route "
+        f"{total['per-group route']:.3f} ms, grouped K4 "
+        f"{total['grouped K4']:.3f} ms")
+    torch.cuda.empty_cache()
+    return results
+
+
+def compare_base(route, base) -> str:
+    """The route's (slices/s, GiB) beside phase 6's."""
+    return (f"{route[0]:.2f} slices/s, {route[1]:.2f} GiB against phase 6's "
+            f"{base[0]:.2f} slices/s, {base[1]:.2f} GiB")
+
+
+def phase_kernel_route(dev, gpu, base, base_step_ms):
+    """Phase 15: gm_tiny built with dwconv="kernel", dysample_grouped=False:
+    b2 fp32 card vs CPU and the launches of one forward (K13 26 times, the
+    single-grid grid-sample 3, the grouped one never); b128 bf16
+    throughput; one b2 fp32 train step card vs CPU (phase 8's check; K13's
+    flip mode 26 times in the backward); then ``entry.train_entry`` on the
+    route, 2 frozen and 3 unfrozen b48 bf16 steps (the route's training
+    main path: counters reset just before, read just after). Returns those
+    counts. ``base``: phase 6's (slices/s, GiB); ``base_step_ms``: phase
+    9's median unfrozen ms/step, each printed beside the route's."""
+    what = "gm_tiny dwconv=kernel per-group DySample"
+    model, *_ = phase_model(dev, KERNEL_ROUTE, PER_FORWARD_KERNEL_ROUTE, what)
+    log(f"throughput {what}: "
+        f"{compare_base(phase_throughput(model, dev, gpu, what), base)}")
+    del model
+    torch.cuda.empty_cache()
+    phase_train_vs_cpu(dev, gpu, KERNEL_ROUTE, PER_STEP_KERNEL_ROUTE)
+    flags = [True] * 2 + [False] * 3
+    model, _, losses, times, counts, mem, *_ = _train_run(
+        dev, torch.bfloat16, flags, KERNEL_ROUTE)
+    want = {k: v * len(flags) for k, v in PER_STEP_KERNEL_ROUTE.items()}
+    want["scan2d"] = 2 * FROZEN_SCANS + 3 * PER_STEP_KERNEL_ROUTE["scan2d"]
+    # a frozen step differentiates the 7 decoder blocks only
+    want["dwconv3x3_flip"] = 2 * 7 + 3 * 26
+    if counts != want:
+        fail(f"{what} trainer: kernel launches {counts}, expected {want}")
+    if not all(np.isfinite(losses)):
+        fail(f"{what} trainer: non-finite loss {losses}")
+    med = statistics.median(times[2:])
+    log(f"trainer {what} b{TRAIN_BATCH} 224x224 bf16: losses "
+        f"{[round(v, 5) for v in losses]}; frozen steps "
+        f"{[round(t, 1) for t in times[:2]]} ms; unfrozen median {med:.3f} "
+        f"ms/step over 3 ({[round(t, 1) for t in times[2:]]}; phase 9: "
+        f"{base_step_ms:.3f}); peak memory {mem:.2f} GiB; launches {counts} "
+        f"| {gpu}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_int8_serving(dev, gpu, base):
+    """Phase 16: gm_tiny built with quant_scan=True: b2 card vs CPU at the
+    bf16 tolerance and the launches of one forward (K14 26 times, K1
+    never); its bf16 logits against the same weights' bf16 logits without
+    int8 storage; ``predict_volume`` over phase 5's volumes (the route's
+    main path: counters reset just before, read just after) and b128
+    throughput; a forward that requires grad raises the inference-only
+    error. Returns the serving counts. ``base``: phase 6's (slices/s,
+    GiB), printed beside the route's."""
+    from ceigm_unet_tpu_torch.models import build_model
+    what = "gm_tiny int8 scan"
+    model, x, _ = phase_model(dev, dict(quant_scan=True), PER_FORWARD_INT8,
+                              what, fp32_tol=BF16_MODEL_TOL)
+    plain = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                        device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got, want = model(x.to(dev)), plain(x.to(dev))
+    del plain
+    err = check_bf16(got, want, f"{what} b2 bf16 logits vs the bf16 logits "
+                     f"without int8 storage")
+    log(f"model {what} b2 bf16 vs bf16 without int8: max abs err {err:.3e} "
+        f"(max|logit| {want.float().abs().max().item():.3e}, tol "
+        f"{BF16_MODEL_TOL}*max)")
+    counts = phase_serving(model, dev, gpu, PER_FORWARD_INT8, what)
+    log(f"throughput {what}: "
+        f"{compare_base(phase_throughput(model, dev, gpu, what), base)}")
+    try:
+        model(x[:1].to(dev))
+    except NotImplementedError as e:
+        if "inference-only" not in str(e):
+            raise
+        log(f"{what}: a forward that requires grad raises: {e}")
+    else:
+        fail(f"{what}: a forward that requires grad did not raise")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1051,14 +1338,14 @@ def main() -> int:
     timed("2 build", _build.library)
     log(f"build: {_build.build().name}")
     kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev))
-    model = timed("4 model", phase_model, dev)
+    model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
-    timed("6 throughput", phase_throughput, model, dev, gpu)
+    base = timed("6 throughput", phase_throughput, model, dev, gpu)
     del model
     torch.cuda.empty_cache()
     kernels["scan2d"] = timed("7 scan2d", phase_scan2d, dev, gpu)
     timed("8 train step vs CPU", phase_train_vs_cpu, dev, gpu)
-    training = timed("9 trainer", phase_trainer, dev, gpu)
+    training, base_step_ms = timed("9 trainer", phase_trainer, dev, gpu)
     kernels.update(timed("10 legacy kernels", phase_legacy_kernels, dev,
                          gpu))
     model = timed("11 legacy model", phase_legacy_model, dev)
@@ -1067,11 +1354,18 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     scan = timed("13 selective_scan", phase_selective_scan, dev, gpu)
+    kernels.update(timed("14 route kernels", phase_route_kernels, dev, gpu))
+    kernel_route = timed("15 kernel-depthwise and per-group-DySample model",
+                         phase_kernel_route, dev, gpu, base, base_step_ms)
+    int8 = timed("16 int8 serving", phase_int8_serving, dev, gpu, base)
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
-    # op for K11 and K12
+    # op for K11 and K12, the kernel route's trainer for K13 (both modes)
+    # and the single-grid grid-sample, int8 serving for K14
     paths = {"scan2d": training, "sscan_dir": legacy, "scan_rows": scan,
-             "selective_scan_n1": scan}
+             "selective_scan_n1": scan, "dwconv3x3": kernel_route,
+             "dwconv3x3_flip": kernel_route,
+             "grid_sample_bilinear": kernel_route, "quad_scan_ln_q8": int8}
     for name in kernels:
         kernels[name]["launches"] = paths.get(name, serving).get(name, 0)
     if any(k["launches"] == 0 for k in kernels.values()):

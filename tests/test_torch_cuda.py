@@ -14,14 +14,21 @@ import pytest
 import torch
 
 from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
+from ceigm_unet_tpu_torch.models.ss2d import q8
 from ceigm_unet_tpu_torch.ops import _build
+from ceigm_unet_tpu_torch.ops.dwconv import (dwconv3x3, dwconv3x3_flip,
+                                             dwconv3x3_ref)
 from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
                                           custom_ffn_fused_ref,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
-                                                  dysample_grid_sample_ref)
+                                                  dysample_grid_sample_ref,
+                                                  grid_sample_bilinear,
+                                                  grid_sample_bilinear_fused)
 from ceigm_unet_tpu_torch.ops.ffn import ffn_gemm
 from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
+                                                quad_scan_ln_cat_q8,
+                                                quad_scan_ln_cat_q8_ref,
                                                 quad_scan_ln_cat_ref, scan2d,
                                                 scan2d_adjoint,
                                                 scan2d_adjoint_ref,
@@ -235,18 +242,19 @@ def test_kernel_ops_keep_the_autograd_graph(dev):
         ffn_gemm(x[0], args[1], args[2], torch.float32)
 
 
-def test_gm_test_train_step_on_card_matches_cpu(dev):
-    """One unfrozen AdamW step of gm_test (decoder drop-path masks from one
-    CPU generator on both sides): the loss, every parameter's gradient
-    (finite) and the BN running statistics, card against CPU; and the
-    launches of the step."""
+def _train_step_card_vs_cpu(dev, routes, want_counts):
+    """One unfrozen AdamW step of gm_test built with ``routes`` (decoder
+    drop-path masks from one CPU generator on both sides): the loss, every
+    parameter's gradient (finite) and the BN running statistics, card
+    against CPU; and the launches of the step."""
     batch = {"image": torch.randn((4, 64, 64, 1), generator=torch.Generator(
         ).manual_seed(1)), "label": torch.randint(0, 9, (4, 64, 64),
                                                    generator=torch.Generator(
                                                    ).manual_seed(2))}
     runs = []
     for device in ("cpu", dev):
-        model = build_model(enc_name="gm_test", device=device).train()
+        model = build_model(enc_name="gm_test", device=device,
+                            **routes).train()
         step = make_train_step(model, make_optimizer(param_groups(model),
                                                      1e-3),
                                cosine_lr(5e-4, 1e-6, 300, 46))
@@ -256,11 +264,7 @@ def test_gm_test_train_step_on_card_matches_cpu(dev):
         torch.cuda.synchronize()
         runs.append((loss.item(), model, dict(_build.launch_counts)))
     (l_cpu, m_cpu, _), (l_dev, m_dev, counts) = runs
-    # 11 quad blocks forward and 22 scans backward; 7 CustomFfn; 3
-    # DySample; LGAG takes its unfolded form in training
-    assert counts == {"quad_scan_ln": 11, "scan2d": 22, "cffn_gemm": 14,
-                      "cffn_dw3_gelu": 7, "cffn_inception7": 7,
-                      "dysample_grid_sample": 3}
+    assert counts == want_counts
     assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
     cpu_p = dict(m_cpu.named_parameters())
     for name, p in m_dev.named_parameters():
@@ -276,6 +280,15 @@ def test_gm_test_train_step_on_card_matches_cpu(dev):
         if "running" in name:
             torch.testing.assert_close(b.cpu(), cpu_b[name], rtol=1e-4,
                                        atol=1e-5, msg=name)
+
+
+def test_gm_test_train_step_on_card_matches_cpu(dev):
+    # 11 quad blocks forward and 22 scans backward; 7 CustomFfn; 3
+    # DySample; LGAG takes its unfolded form in training
+    _train_step_card_vs_cpu(dev, {}, {
+        "quad_scan_ln": 11, "scan2d": 22, "cffn_gemm": 14,
+        "cffn_dw3_gelu": 7, "cffn_inception7": 7,
+        "dysample_grid_sample": 3})
 
 
 # --- the legacy VMamba slice: K10, K11, K12 --------------------------------------
@@ -381,3 +394,146 @@ def test_vssm_test_legacy_model_on_card_matches_cpu_and_counts_launches(dev):
     assert dict(_build.launch_counts) == {"sscan_dir": 10}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
                                atol=1e-3 * want.abs().max().item())
+
+
+# --- the kernel routes: K6/K7 (single-grid grid-sample), K13, K14 ------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# DySample's per-group images at 224x224 and batch 2 (4 groups each), and a
+# non-2x output
+@pytest.mark.parametrize("shape", [(8, 7, 7, 112, 14, 14),
+                                   (8, 14, 14, 87, 28, 28),
+                                   (8, 28, 28, 32, 56, 56),
+                                   (2, 9, 13, 20, 11, 30)])
+def test_grid_sample_bilinear_kernel(dev, shape, dtype):
+    B, H, W, C, Ho, Wo = shape
+    g = torch.Generator().manual_seed(C)
+    x = _rand(g, (B, H, W, C), dev, 1.0, DT[dtype])
+    grid = (torch.rand((B, Ho, Wo, 2), generator=g) * 2.4 - 1.2).to(dev)
+    got = grid_sample_bilinear_fused(x, grid)
+    assert got.dtype == DT[dtype]
+    _close(got, grid_sample_bilinear(x, grid), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# gm_tiny's quad-block convs at 56x56 and 7x7, a ragged tile and channel
+# block; x is the channel slice of a (B*H*W, 2C) tensor, as in the model
+@pytest.mark.parametrize("shape", [(2, 56, 56, 64), (2, 14, 14, 348),
+                                   (2, 7, 7, 448), (1, 9, 11, 35)])
+def test_dwconv3x3_kernel(dev, shape, dtype):
+    B, H, W, C = shape
+    g = torch.Generator().manual_seed(C)
+    xz = _rand(g, (B * H * W, 2 * C), dev, 1.0, DT[dtype])
+    x = xz[:, :C].view(B, H, W, C)
+    w, b = _rand(g, (C, 1, 3, 3), dev, 0.3), _rand(g, (C,), dev, 0.1)
+    got = dwconv3x3(x, w, b)
+    assert got.dtype == DT[dtype] and got.is_contiguous()
+    _close(got, dwconv3x3_ref(x, w, b), dtype)
+    gy = _rand(g, (B, H, W, C), dev, 1.0, DT[dtype])
+    _close(dwconv3x3_flip(gy, w), dwconv3x3_ref(gy, w, flip=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 16), (2, 14, 14, 87),
+                                   (3, 7, 7, 112), (1, 5, 9, 8)])
+def test_quad_scan_ln_q8_kernel(dev, shape, dtype):
+    """The int8 scan (Bs/Cs in ``dtype``), bf16 out, at the bf16
+    tolerance."""
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D)
+    K, L = 4, H * W
+    (uq, su), (dq, sdt) = [q8(_rand(g, (B, L, K, D), dev, s))
+                           for s in (1.0, 0.5)]
+    BC = [_rand(g, (B, K, L), dev, 1.0, DT[dtype]) for _ in range(2)]
+    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
+           _rand(g, (K, D), dev), 1 + _rand(g, (K, D), dev, .1),
+           _rand(g, (K, D), dev, .1)]
+    for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+        args = [uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3), su, sdt, *BC,
+                *prm, H, W, dirs]
+        got = quad_scan_ln_cat_q8(*args)
+        assert got.dtype == torch.bfloat16
+        _close(got, quad_scan_ln_cat_q8_ref(*args), "bfloat16")
+
+
+def test_route_ops_keep_the_autograd_graph(dev):
+    """dwconv3x3 (backward: the flip kernel) and the single-grid
+    grid-sample keep the graph and give the CPU's gradients; the flip
+    kernel alone and the int8 scan refuse inputs that require grad."""
+    g = torch.Generator().manual_seed(4)
+    B, H, W, C = 2, 9, 10, 40
+    leaves = [_rand(g, (B, H, W, C), dev), _rand(g, (C, 1, 3, 3), dev, .3),
+              _rand(g, (C,), dev, .1)]
+    grid = (torch.rand((B, 13, 7, 2), generator=g) * 2 - 1).to(dev)
+    go = {"dw": _rand(g, (B, H, W, C), dev), "gs": _rand(g, (B, 13, 7, C),
+                                                         dev)}
+    for name, fn, ins, launched in (
+            ("dw", dwconv3x3, leaves, {"dwconv3x3": 1, "dwconv3x3_flip": 1}),
+            ("gs", grid_sample_bilinear_fused, [leaves[0], grid],
+             {"grid_sample_bilinear": 1})):
+        grads = []
+        for device in (dev, "cpu"):
+            ts = [t.detach().to(device).requires_grad_() for t in ins]
+            _build.reset_launch_counts()
+            out = fn(*ts)
+            assert out.grad_fn is not None
+            out.backward(go[name].to(device))
+            if device == dev:
+                torch.cuda.synchronize()
+                assert dict(_build.launch_counts) == launched
+            grads.append([t.grad.cpu() for t in ts])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-4 * b.abs().max().item())
+    with pytest.raises(RuntimeError, match="no backward"):
+        dwconv3x3_flip(leaves[0].requires_grad_(), leaves[1])
+    u = _rand(g, (1, 90, 4, 8), dev)
+    (uq, su), (dq, sdt) = q8(u), q8(0.5 * u)
+    bc = _rand(g, (1, 4, 90), dev)
+    prm = [_rand(g, (4, 8), dev).requires_grad_() for _ in range(5)]
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        quad_scan_ln_cat_q8(uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3),
+                            su, sdt, bc, bc, *prm, 9, 10, (1, 2, 3, 4))
+
+
+@pytest.mark.parametrize("routes,launches", [
+    # K13 in the 11 quad blocks; the per-group DySample route in the 3
+    # upsamplers, once each
+    (dict(dwconv="kernel", dysample_grouped=False),
+     {"quad_scan_ln": 11, "dwconv3x3": 11, "cffn_gemm": 14,
+      "cffn_dw3_gelu": 7, "cffn_inception7": 7, "grid_sample_bilinear": 3,
+      "lgag_gate": 3}),
+    # K14 in place of K1 in the 11 quad blocks
+    (dict(quant_scan=True),
+     {"quad_scan_ln_q8": 11, "cffn_gemm": 14, "cffn_dw3_gelu": 7,
+      "cffn_inception7": 7, "dysample_grid_sample": 3, "lgag_gate": 3})])
+def test_gm_test_routes_on_card_match_cpu_and_count_launches(dev, routes,
+                                                             launches):
+    """Card against CPU, fp32: the kernel routes at the model's tolerance
+    (rtol 1e-3, atol 1e-3 * max); the int8 route within 0.05 * max (its
+    bf16 scan output and a possible flipped int8 step)."""
+    model = build_model(enc_name="gm_test", device="cpu", **routes)
+    x = torch.randn((2, 64, 64, 1), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = model(x)
+        model.to(dev)
+        _build.reset_launch_counts()
+        got = model(x.to(dev))
+        torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == launches
+    scale = want.abs().max().item()
+    if routes.get("quant_scan"):
+        assert (got.cpu() - want).abs().max().item() <= 0.05 * scale
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                   atol=1e-3 * scale)
+
+
+def test_gm_test_kernel_routes_train_step_on_card_matches_cpu(dev):
+    # forward: K13 in the 11 quad blocks, the single-grid grid-sample in
+    # the 3 upsamplers; backward: K13's flip mode 11 times, K8 22 times
+    _train_step_card_vs_cpu(dev, dict(dwconv="kernel",
+                                      dysample_grouped=False), {
+        "quad_scan_ln": 11, "scan2d": 22, "dwconv3x3": 11,
+        "dwconv3x3_flip": 11, "cffn_gemm": 14, "cffn_dw3_gelu": 7,
+        "cffn_inception7": 7, "grid_sample_bilinear": 3})

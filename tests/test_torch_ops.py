@@ -321,9 +321,9 @@ def test_ffn_gemm_rejects_dtype_pairs_the_kernel_lacks():
 
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["cffn.cu", "common.cuh", "grid_sample.cu", "lgag.cu",
-                     "quad_scan_ln.cu", "scan2d.cu", "scan_rows.cu",
-                     "sscan_dir.cu"]
+    assert names == ["cffn.cu", "common.cuh", "dwconv3.cu", "grid_sample.cu",
+                     "lgag.cu", "quad_scan_ln.cu", "scan2d.cu",
+                     "scan_rows.cu", "sscan_dir.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -338,8 +338,16 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.train.trainstep, "
             "ceigm_unet_tpu_torch.models.vmamba, "
             "ceigm_unet_tpu_torch.ops.cross_scan, "
-            "ceigm_unet_tpu_torch.ops.selective_scan; "
+            "ceigm_unet_tpu_torch.ops.selective_scan, "
+            "ceigm_unet_tpu_torch.ops.dwconv; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
+            "from ceigm_unet_tpu_torch.ops.grid_sample import "
+            "grid_sample_bilinear_fused, dysample_grid_sample_pergroup; "
+            "from ceigm_unet_tpu_torch.ops.quad_scan import "
+            "quad_scan_ln_cat_q8; "
+            "from ceigm_unet_tpu_torch.entry import entry; "
+            "entry('cpu', quant_scan=True, dwconv='kernel', "
+            "dysample_grouped=False); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'ceigm_unet_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
