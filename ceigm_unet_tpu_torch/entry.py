@@ -2,7 +2,8 @@
 224x224, 1 channel) and an example input, as ``__graft_entry__.entry`` gives
 them for the JAX package; its training step on a seeded synthetic batch,
 the step ``tools/bench_train.py`` runs for the JAX package; and the legacy
-MSVM-UNet (VSSM tiny_0230s encoder) with an example input."""
+MSVM-UNet (VSSM tiny_0230s encoder) with an example input, and its training
+step on the same recipe."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple, Union
@@ -29,8 +30,9 @@ def entry(device: Union[str, torch.device] = "cuda",
     a zero (1, 224, 224, 1) NHWC input there; ``model(x)`` gives logits.
     ``quant_scan`` (``CEIGM_QUANT``), ``dwconv`` (``CEIGM_BLDW``) and
     ``dysample_grouped`` (``CEIGM_GS_GROUP``) select the model's kernel
-    routes, as ``build_model`` describes; with ``quant_scan`` the forward
-    runs under ``torch.no_grad()``."""
+    routes, as ``build_model`` describes; with ``quant_scan`` (inference
+    only) the model's parameters do not require grad, so ``model(x)`` runs
+    with grad mode on or off."""
     model = build_model(num_classes=9, enc_name="gm_tiny", dtype=dtype,
                         device=device, seed=seed, quant_scan=quant_scan,
                         dwconv=dwconv, dysample_grouped=dysample_grouped)
@@ -43,9 +45,9 @@ def legacy_entry(device: Union[str, torch.device] = "cuda",
     """(model, x) for the legacy MSVM-UNet (VSSM ``tiny_0230s`` encoder +
     the published decoder, 9 classes): the seeded model in eval mode on
     ``device`` and a zero (1, 224, 224, 1) NHWC input there.
-    ``predict_volume`` serves it as it serves ``entry()``'s model. On the
-    card its forward runs under ``torch.no_grad()``: the VMamba scan kernels
-    have no backward yet and refuse inputs that require grad."""
+    ``predict_volume`` serves it as it serves ``entry()``'s model;
+    ``model(x)`` runs with grad mode on or off (every scan op on its path
+    has a backward)."""
     model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
                                dtype=dtype, device=device, seed=seed)
     return model, torch.zeros((1, 224, 224, 1), device=device)
@@ -90,6 +92,31 @@ def train_entry(device: Union[str, torch.device] = "cuda",
     model = build_model(num_classes=cfg.num_classes, enc_name=cfg.enc_name,
                         dtype=dtype, device=device, seed=seed, dwconv=dwconv,
                         dysample_grouped=dysample_grouped).train()
+    optimizer = make_optimizer(param_groups(model), cfg.weight_decay)
+    step = make_train_step(
+        model, optimizer,
+        cosine_lr(cfg.lr, cfg.eta_min, cfg.max_epochs,
+                  SYNAPSE_STEPS_PER_EPOCH),
+        ce_weight=cfg.ce_weight, dc_weight=cfg.dc_weight)
+    return model, step, synthetic_batch(batch, cfg.img_size,
+                                        cfg.num_classes, seed, device)
+
+
+def legacy_train_entry(device: Union[str, torch.device] = "cuda",
+                       dtype: torch.dtype = torch.float32, batch: int = 48,
+                       seed: int = 0
+                       ) -> Tuple[MSVMUNetLegacy, Callable,
+                                  Dict[str, torch.Tensor]]:
+    """(model, step, batch) as :func:`train_entry` gives them, for the
+    legacy MSVM-UNet (VSSM ``tiny_0230s`` encoder + the published decoder,
+    9 classes) in training mode on ``device`` computing in ``dtype``
+    (parameters fp32), with the Synapse recipe of ``train_entry`` and one
+    seeded synthetic batch. Every SS2D scans through ``sscan_dir`` (K10
+    forward, K8 twice backward on the card)."""
+    cfg = SYNAPSE_CONFIG
+    model = build_legacy_model(num_classes=cfg.num_classes,
+                               enc_name="tiny_0230s", dtype=dtype,
+                               device=device, seed=seed).train()
     optimizer = make_optimizer(param_groups(model), cfg.weight_decay)
     step = make_train_step(
         model, optimizer,

@@ -101,7 +101,9 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
     so every route loads the same weights):
 
     - ``quant_scan`` (``CEIGM_QUANT=1``): int8 storage of the quad scan's u
-      and dt, scanned by ``quad_scan_ln_cat_q8``; inference only.
+      and dt, scanned by ``quad_scan_ln_cat_q8``; inference only, so the
+      model's parameters are built not requiring grad, and its forward
+      runs as it is, with grad mode on or off.
     - ``dwconv`` (``CEIGM_BLDW``): ``"library"`` runs the quad blocks'
       depthwise conv as ``F.conv2d``, ``"kernel"`` as ``dwconv3x3``.
     - ``dysample_grouped`` (``CEIGM_GS_GROUP``): True samples DySample's
@@ -113,4 +115,6 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
                      quant_scan=quant_scan, dwconv=dwconv,
                      dysample_grouped=dysample_grouped)
     init_weights(model, torch.Generator().manual_seed(seed))
+    if quant_scan:
+        model.requires_grad_(False)
     return model.to(device).eval()

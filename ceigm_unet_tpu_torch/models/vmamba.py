@@ -318,13 +318,15 @@ class MSVMUNetLegacy(nn.Module):
     ``dtype`` and returns (B, H, W, classes) logits in ``dtype``."""
 
     def __init__(self, num_classes: int = 9, enc_name: str = "tiny_0230s",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 decoder_drop_path_rate: float = 0.2):
         super().__init__()
         cfg = VSSM_CONFIGS[enc_name]
         self.dtype = dtype
         self.encoder = VSSM(**cfg)
         self.decoder = LegacyDecoder(dims=list(cfg["dims"])[::-1],
-                                     num_classes=num_classes)
+                                     num_classes=num_classes,
+                                     drop_path_rate=decoder_drop_path_rate)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -366,12 +368,15 @@ def init_legacy_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_legacy_model(num_classes: int = 9, enc_name: str = "tiny_0230s",
                        dtype: torch.dtype = torch.float32,
                        device: Union[str, torch.device] = "cuda",
-                       seed: int = 0) -> MSVMUNetLegacy:
+                       seed: int = 0,
+                       decoder_drop_path_rate: float = 0.2) -> MSVMUNetLegacy:
     """The legacy MSVM-UNet with random weights from a CPU
     ``torch.Generator`` seeded with ``seed``, in eval mode, on ``device``
     (the card unless the caller asks for ``"cpu"``). Parameters stay fp32;
-    ``dtype`` is the compute dtype."""
+    ``dtype`` is the compute dtype. ``decoder_drop_path_rate`` is the
+    decoder's stochastic depth (the encoder's is its config's)."""
     model = MSVMUNetLegacy(num_classes=num_classes, enc_name=enc_name,
-                           dtype=dtype)
+                           dtype=dtype,
+                           decoder_drop_path_rate=decoder_drop_path_rate)
     init_legacy_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

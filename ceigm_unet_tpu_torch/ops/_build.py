@@ -60,13 +60,13 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -80,20 +80,21 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile the kernels if the library for the current sources is not
-    built yet. Returns the library's path."""
-    BUILD_DIR.mkdir(exist_ok=True)
-    lib = BUILD_DIR / f"libceigm_kernels_{source_hash()}.so"
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels of ``csrc`` (this checkout's by default) if the
+    library for those sources is not built yet. Returns the library's
+    path."""
+    build_dir.mkdir(exist_ok=True)
+    lib = build_dir / f"libceigm_kernels_{source_hash(csrc)}.so"
     if lib.exists():
         return lib
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    obj_dir = BUILD_DIR / f"obj_{lib.stem}_{os.getpid()}"
+    obj_dir = build_dir / f"obj_{lib.stem}_{os.getpid()}"
     obj_dir.mkdir(exist_ok=True)
     nvcc = _nvcc()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+    for src in sorted(csrc.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", str(src), "-o",
                str(obj_dir / (src.stem + ".o"))]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE,
@@ -117,14 +118,19 @@ def _check(cmd, returncode: int, err: str) -> None:
             returncode, " ".join(cmd), err[-8000:]))
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    return load(build())
 
 
 def launch(name: str, *args) -> None:

@@ -25,8 +25,11 @@ for int8 operands, dequantized in its prologue, bf16 out; inference only.
 
 :func:`sscan_dir` is the same scan without the LayerNorm, over all the
 channels in every direction (the JAX package's ``sscan_dir``, the legacy
-VMamba SS2D's scan): ``csrc/sscan_dir.cu`` for CUDA tensors, forward only;
-:func:`sscan_dir_ref` for CPU tensors.
+VMamba SS2D's scan), the autograd op :class:`SScanDir`: its forward
+launches ``csrc/sscan_dir.cu`` for CUDA tensors and runs
+:func:`sscan_dir_ref` for CPU tensors; its backward is the JAX package's
+``_sscan_bwd`` (:func:`sscan_dir_bwd`), whose two scans are
+:func:`scan2d` and :func:`scan2d_adjoint`, as in ``QuadScanLnCat``.
 """
 from __future__ import annotations
 
@@ -112,9 +115,6 @@ def _scan2d_call(a, b, H: int, W: int, directions: Sequence[int],
         raise ValueError(f"{what}: no kernel for {a.device}")
     if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
         raise ValueError(f"{what}: directions {directions}")
-    if D > MAX_D:
-        raise ValueError(f"{what}: the kernel takes D <= {MAX_D} channels "
-                         f"per group, got {D}")
     ac, bc = a.contiguous(), b.contiguous()
     _build.check_cuda(ac, bc)
     out = torch.empty_like(ac)
@@ -300,34 +300,14 @@ def sscan_dir_ref(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
     return torch.empty_like(y).scatter_(2, idx4, y)
 
 
-def sscan_dir(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
-              directions: Sequence[int]) -> torch.Tensor:
-    """The d_state = 1 selective scan of each direction k of ``directions``
-    over the H*W pixels (the JAX package's ``sscan_dir``, all K directions
-    in one call): d = softplus(dt + bias), h = exp(d*A)*h_prev + d*u*Bs,
-    y = Cs*h + Dv*u.
-
-    u, dt: (B, K, H*W, D), any strides (u may be a stride-0 view over K);
-    Bs, Cs: (B, K, H*W) per-pixel scalars; all of one dtype. A, bias, Dv:
-    (K, D). Returns y (B, K, H*W, D) fp32 in row-major pixel order. CUDA
-    tensors launch ``csrc/sscan_dir.cu``, forward only; CPU tensors run
-    :func:`sscan_dir_ref`, differentiable."""
+def _sscan_dir_launch(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
+                      directions: Sequence[int]) -> torch.Tensor:
+    """Launch K10 (``csrc/sscan_dir.cu``): y (B, K, H*W, D) fp32."""
     B, K, L, D = u.shape
-    if L != H * W or dt.shape != u.shape or Bs.shape != (B, K, L) \
-            or Cs.shape != (B, K, L) or len(directions) != K:
-        raise ValueError(f"sscan_dir: shapes u {tuple(u.shape)} dt "
-                         f"{tuple(dt.shape)} Bs {tuple(Bs.shape)} Cs "
-                         f"{tuple(Cs.shape)} H*W {H * W} directions "
-                         f"{tuple(directions)}")
-    if not u.dtype == dt.dtype == Bs.dtype == Cs.dtype:
-        raise TypeError("sscan_dir: u, dt, Bs and Cs must share a dtype")
-    if u.device.type == "cpu":
-        return sscan_dir_ref(u, dt, Bs, Cs, A, bias, Dv, H, W, directions)
     if u.device.type != "cuda":
         raise ValueError(f"sscan_dir: no kernel for {u.device}")
     if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
         raise ValueError(f"sscan_dir: directions {directions}")
-    _build.check_no_grad("sscan_dir", u, dt, Bs, Cs, A, bias, Dv)
     _build.check_cuda(u, dt, Bs, Cs)
     prm = [t.to(device=u.device, dtype=torch.float32).reshape(K, D)
            .contiguous() for t in (A, bias, Dv)]
@@ -339,6 +319,86 @@ def sscan_dir(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
         *u.stride(), *dt.stride(), *Bs.stride(), *Cs.stride(), B, K, H, W, D,
         *dirs, _build.dtype_code(u))
     return out
+
+
+def sscan_dir_bwd(u, dt, Bs, Cs, A, bias, Dv, gy, H: int, W: int,
+                  directions: Sequence[int]):
+    """Gradients of :func:`sscan_dir` for the output cotangent gy (B, K,
+    H*W, D): the JAX package's ``_sscan_bwd``, formula for formula, all K
+    directions at once, in fp32. h again by :func:`scan2d`, the adjoint by
+    :func:`scan2d_adjoint` (K8 twice on the card). Returns the grads of (u,
+    dt, Bs, Cs, A, bias, Dv), each in its input's dtype and shape (du is
+    (B, K, H*W, D) for a u expanded over K; autograd sums it back)."""
+    B, K, L, D = u.shape
+    prm = lambda t: t.float().reshape(1, K, 1, D)
+    uf, g = u.float(), gy.float()
+    Bf, Cf = Bs.float().unsqueeze(-1), Cs.float().unsqueeze(-1)
+    Af = prm(A)
+
+    pre = dt.float() + prm(bias)
+    d = _softplus(pre)
+    a = torch.exp(d * Af)
+    h = scan2d(a, d * uf * Bf, H, W, directions)
+    db = scan2d_adjoint(a, Cf * g, H, W, directions)
+    da = db * _step_behind(h, H, W, directions)
+
+    ddt = (db * uf * Bf + (da * a) * Af) * torch.sigmoid(pre)
+    du = db * d * Bf + prm(Dv) * g
+    dBs = (db * d * uf).sum(-1)
+    dCs = (h * g).sum(-1)
+    dA = (da * a * d).sum((0, 2))
+    dbias = ddt.sum((0, 2))
+    dDv = (g * uf).sum((0, 2))
+    cast = lambda gr, t: gr.reshape(t.shape).to(t.dtype)
+    return (cast(du, u), cast(ddt, dt), cast(dBs, Bs), cast(dCs, Cs),
+            cast(dA, A), cast(dbias, bias), cast(dDv, Dv))
+
+
+class SScanDir(torch.autograd.Function):
+    """Autograd op of :func:`sscan_dir`: saves its inputs, and recomputes
+    in the backward (:func:`sscan_dir_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, Bs, Cs, A, bias, Dv, H, W, directions):
+        ctx.save_for_backward(u, dt, Bs, Cs, A, bias, Dv)
+        ctx.geometry = (H, W, directions)
+        args = (u, dt, Bs, Cs, A, bias, Dv, H, W, directions)
+        if u.device.type == "cpu":
+            return sscan_dir_ref(*args)
+        return _sscan_dir_launch(*args)
+
+    @staticmethod
+    def backward(ctx, gy):
+        grads = sscan_dir_bwd(*ctx.saved_tensors, gy, *ctx.geometry)
+        return (*grads, None, None, None)
+
+
+def sscan_dir(u, dt, Bs, Cs, A, bias, Dv, H: int, W: int,
+              directions: Sequence[int]) -> torch.Tensor:
+    """The d_state = 1 selective scan of each direction k of ``directions``
+    over the H*W pixels (the JAX package's ``sscan_dir``, all K directions
+    in one call): d = softplus(dt + bias), h = exp(d*A)*h_prev + d*u*Bs,
+    y = Cs*h + Dv*u.
+
+    u, dt: (B, K, H*W, D), any strides (u may be a stride-0 view over K);
+    Bs, Cs: (B, K, H*W) per-pixel scalars; all of one dtype. A, bias, Dv:
+    (K, D). Returns y (B, K, H*W, D) fp32 in row-major pixel order,
+    differentiable in every tensor argument (:class:`SScanDir`). CUDA
+    tensors launch ``csrc/sscan_dir.cu`` forward and ``csrc/scan2d.cu``
+    twice backward; CPU tensors run the plain versions of both."""
+    B, K, L, D = u.shape
+    if L != H * W or dt.shape != u.shape or Bs.shape != (B, K, L) \
+            or Cs.shape != (B, K, L) or len(directions) != K:
+        raise ValueError(f"sscan_dir: shapes u {tuple(u.shape)} dt "
+                         f"{tuple(dt.shape)} Bs {tuple(Bs.shape)} Cs "
+                         f"{tuple(Cs.shape)} H*W {H * W} directions "
+                         f"{tuple(directions)}")
+    if not u.dtype == dt.dtype == Bs.dtype == Cs.dtype:
+        raise TypeError("sscan_dir: u, dt, Bs and Cs must share a dtype")
+    if u.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sscan_dir: no kernel for {u.device}")
+    return SScanDir.apply(u, dt, Bs, Cs, A, bias, Dv, H, W,
+                          tuple(int(d) for d in directions))
 
 
 def quad_scan_ln_cat(u, dt, Bs, Cs, A, bias, Dv, ln_scale, ln_bias,

@@ -16,8 +16,14 @@ Routing (in place of ``_resolve_backend``): N = 1 with softplus goes to
 :func:`selective_scan_n1`, the fused scan (K12); every other case,
 ``return_last_state`` included (it needs h), builds the fp32 scan elements
 in PyTorch and runs :func:`scan_rows` (K11). Both launch
-``csrc/scan_rows.cu`` for CUDA tensors, forward only, and run their plain
-versions for CPU tensors, where autograd runs through them.
+``csrc/scan_rows.cu`` for CUDA tensors and run their plain versions for CPU
+tensors; they are raw forward ops, which refuse inputs that require grad
+on the card.
+
+:func:`selective_scan` is the autograd op :class:`SelectiveScan` on either
+route: its backward is the JAX package's recompute rule (``_bwd_rule``,
+:func:`selective_scan_bwd`), two :func:`scan_rows` launches, on the CPU as
+on the card.
 """
 from __future__ import annotations
 
@@ -136,6 +142,120 @@ def selective_scan_n1(u, delta, A, B, C, D=None, delta_bias=None,
     return out.to(out_dtype)
 
 
+def _prep(u, delta, A, B4, delta_bias, delta_softplus: bool):
+    """fp32 u and step size (bias added, softplus applied when set), and
+    the scan elements a = exp(dt*A), b = dt*u*B: (batch, dim, N, L)."""
+    batch, dim, L = u.shape
+    G, N = B4.shape[1], A.shape[-1]
+    uf, dt = u.float(), delta.float()
+    if delta_bias is not None:
+        dt = dt + delta_bias.float()[:, None]
+    if delta_softplus:
+        dt = _softplus(dt)
+    a = torch.exp(dt[:, :, None, :] * A.float()[None, :, :, None])
+    b = ((dt * uf).reshape(batch, G, dim // G, 1, L)
+         * B4.float()[:, :, None]).reshape(batch, dim, N, L)
+    return uf, dt, a, b
+
+
+def _rows_forward(u, delta, A, B4, C4, D, delta_bias, delta_softplus: bool,
+                  out_dtype):
+    """The unfused route: fp32 scan elements in PyTorch, :func:`scan_rows`
+    (K11), the C contraction. Returns (y, h)."""
+    batch, dim, L = u.shape
+    G, N = B4.shape[1], A.shape[-1]
+    uf, _, a, b = _prep(u, delta, A, B4, delta_bias, delta_softplus)
+    h = scan_rows(a, b)                                  # (batch, dim, N, L)
+    y = torch.einsum("bgdnl,bgnl->bgdl", h.reshape(batch, G, dim // G, N, L),
+                     C4.float()).reshape(batch, dim, L)
+    if D is not None:
+        y = y + D.float()[None, :, None] * uf
+    return y.to(out_dtype), h
+
+
+def selective_scan_bwd(u, delta, A, B, C, D, delta_bias, gy,
+                       delta_softplus: bool, gh_last=None):
+    """Gradients of :func:`selective_scan` for the output cotangent gy
+    (batch, dim, L), and for the last state's ``gh_last`` (batch, dim, N)
+    with ``return_last_state``: the JAX package's ``_bwd_rule``, formula for
+    formula, with exactly two :func:`scan_rows` launches (h again; the
+    reversed adjoint over a_{t+1}, seeded at t = L-1 with gh_last). Returns
+    the grads of (u, delta, A, B, C, D, delta_bias), each in its input's
+    dtype and shape; None for a None input."""
+    B4, C4 = _bc4(B), _bc4(C)
+    batch, dim, L = u.shape
+    G, N = B4.shape[1], A.shape[-1]
+    dg = dim // G
+    Af, Bf, Cf = A.float(), B4.float(), C4.float()
+    gyf = gy.float()
+    uf, dt, a, b = _prep(u, delta, A, B4, delta_bias, delta_softplus)
+    h = scan_rows(a, b)                                  # (batch, dim, N, L)
+
+    # y_t = sum_{d in g} C_{g,n,t} h_{d,n,t} (+ D u)
+    hg = h.reshape(batch, G, dg, N, L)
+    gyg = gyf.reshape(batch, G, dg, L)
+    dC = torch.einsum("bgdnl,bgdl->bgnl", hg, gyg)
+
+    # adjoint g_t = C_t gy_t + a_{t+1} g_{t+1}, walked in reverse
+    bt = (Cf[:, :, None] * gyg[:, :, :, None]).reshape(batch, dim, N, L)
+    if gh_last is not None:
+        bt[..., -1] += gh_last.float()
+    a_next = torch.cat([a[..., 1:], torch.ones_like(a[..., :1])], dim=-1)
+    g = scan_rows(a_next.flip(-1), bt.flip(-1)).flip(-1)
+    h_prev = torch.cat([torch.zeros_like(h[..., :1]), h[..., :-1]], dim=-1)
+    da_a = g * h_prev * a
+
+    ddt_a = torch.einsum("bdnl,dn->bdl", da_a, Af)
+    dA = torch.einsum("bdnl,bdl->dn", da_a, dt)
+    dbg = g.reshape(batch, G, dg, N, L)
+    dB = torch.einsum("bgdnl,bgdl->bgnl", dbg,
+                      (dt * uf).reshape(batch, G, dg, L))
+    du_b = torch.einsum("bgdnl,bgnl->bgdl", dbg, Bf).reshape(batch, dim, L)
+    du = du_b * dt
+    ddt = ddt_a + du_b * uf
+    if delta_softplus:
+        pre = delta.float()
+        if delta_bias is not None:
+            pre = pre + delta_bias.float()[:, None]
+        ddt = ddt * torch.sigmoid(pre)
+    dD = None
+    if D is not None:
+        dD = torch.einsum("bdl,bdl->d", gyf, uf)
+        du = du + D.float()[None, :, None] * gyf
+    dbias = ddt.sum((0, 2)) if delta_bias is not None else None
+
+    cast = lambda gr, t: None if t is None else gr.reshape(t.shape).to(
+        t.dtype)
+    return (cast(du, u), cast(ddt, delta), cast(dA, A), cast(dB, B),
+            cast(dC, C), cast(dD, D), cast(dbias, delta_bias))
+
+
+class SelectiveScan(torch.autograd.Function):
+    """Autograd op of :func:`selective_scan`: saves its inputs, and
+    recomputes in the backward (:func:`selective_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus,
+                return_last_state, out_dtype):
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias)
+        ctx.delta_softplus = delta_softplus
+        B4, C4 = _bc4(B), _bc4(C)
+        if A.shape[-1] == 1 and delta_softplus and not return_last_state:
+            return selective_scan_n1(u, delta, A, B4, C4, D, delta_bias,
+                                     out_dtype)
+        y, h = _rows_forward(u, delta, A, B4, C4, D, delta_bias,
+                             delta_softplus, out_dtype)
+        if return_last_state:
+            return y, h[..., -1].contiguous()
+        return y
+
+    @staticmethod
+    def backward(ctx, gy, *gh_last):
+        grads = selective_scan_bwd(*ctx.saved_tensors, gy,
+                                   ctx.delta_softplus, *gh_last)
+        return (*grads, None, None, None)
+
+
 def selective_scan(u, delta, A, B, C, D: Optional[torch.Tensor] = None,
                    delta_bias: Optional[torch.Tensor] = None,
                    delta_softplus: bool = False,
@@ -143,9 +263,9 @@ def selective_scan(u, delta, A, B, C, D: Optional[torch.Tensor] = None,
     """Selective scan with the reference CUDA extension's semantics.
     ``out_dtype=torch.float32`` with low-precision inputs is the "oflex"
     variant; None keeps u's dtype. With ``return_last_state`` returns
-    (y, h_L) where h_L is (batch, dim, N) fp32."""
+    (y, h_L) where h_L is (batch, dim, N) fp32. Differentiable in every
+    tensor argument (:class:`SelectiveScan`)."""
     B4, C4 = _bc4(B), _bc4(C)
-    out_dtype = out_dtype or u.dtype
     batch, dim, L = u.shape
     G, N = B4.shape[1], A.shape[-1]
     if delta.shape != u.shape or A.shape != (dim, N) \
@@ -154,25 +274,6 @@ def selective_scan(u, delta, A, B, C, D: Optional[torch.Tensor] = None,
         raise ValueError(f"selective_scan: u {tuple(u.shape)} delta "
                          f"{tuple(delta.shape)} A {tuple(A.shape)} B "
                          f"{tuple(B4.shape)} C {tuple(C4.shape)}")
-    if N == 1 and delta_softplus and not return_last_state:
-        return selective_scan_n1(u, delta, A, B4, C4, D, delta_bias,
-                                 out_dtype)
-    dg = dim // G
-    uf = u.float()
-    dt = delta.float()
-    if delta_bias is not None:
-        dt = dt + delta_bias.float()[:, None]
-    if delta_softplus:
-        dt = _softplus(dt)
-    a = torch.exp(dt[:, :, None, :] * A.float()[None, :, :, None])
-    b = ((dt * uf).reshape(batch, G, dg, 1, L)
-         * B4.float()[:, :, None]).reshape(batch, dim, N, L)
-    h = scan_rows(a, b)                                  # (batch, dim, N, L)
-    y = torch.einsum("bgdnl,bgnl->bgdl", h.reshape(batch, G, dg, N, L),
-                     C4.float()).reshape(batch, dim, L)
-    if D is not None:
-        y = y + D.float()[None, :, None] * uf
-    y = y.to(out_dtype)
-    if return_last_state:
-        return y, h[..., -1]
-    return y
+    return SelectiveScan.apply(u, delta, A, B, C, D, delta_bias,
+                               delta_softplus, return_last_state,
+                               out_dtype or u.dtype)

@@ -40,14 +40,15 @@ def cosine_annealing_warm_restarts(base_lr: float, steps_per_epoch: int,
     cycle spans t_0 * t_mult**i epochs."""
     def schedule(step: int) -> float:
         epoch = step // steps_per_epoch
+        # walk the completed cycles in integers (a float log of the cycle
+        # count lands one short where the ratio rounds below an integer)
+        t_cur, t_i = epoch, t_0
         if t_mult == 1:
-            t_cur, t_i = epoch % t_0, t_0
+            t_cur %= t_0
         else:
-            # n completed cycles: epoch >= t_0*(t_mult^n - 1)/(t_mult - 1)
-            n = math.floor(math.log(epoch * (t_mult - 1.0) / t_0 + 1.0)
-                           / math.log(t_mult))
-            t_cur = epoch - t_0 * (t_mult ** n - 1.0) / (t_mult - 1.0)
-            t_i = t_0 * t_mult ** n
+            while t_cur >= t_i:
+                t_cur -= t_i
+                t_i *= t_mult
         return eta_min + (base_lr - eta_min) * 0.5 * (
             1.0 + math.cos(math.pi * t_cur / t_i))
     return schedule

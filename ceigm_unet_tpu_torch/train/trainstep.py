@@ -6,15 +6,25 @@ stochastic depth from the caller's generator), the DiceCE loss, the
 backward, the optimizer step at the LR the per-epoch schedule gives, and the
 encoder freeze.
 
-Freeze semantics are the JAX package's: while frozen, the encoder gets zero
-gradients and zero updates (no weight decay; its optimizer moments stay 0),
-and the optimizer's step count still advances, so Adam's bias correction
-counts every step (``docs/PARITY.md``). Here the encoder's parameters leave
+Freeze semantics: while frozen, the encoder gets zero gradients and zero
+updates (no weight decay; its optimizer moments stay exactly 0), and the
+optimizer's step count still advances, so Adam's bias correction counts
+every step (``docs/PARITY.md``). Here the encoder's parameters leave
 autograd for the step (its backward is not computed; the result is the
 same), their grads are set to zeros (not None, so torch.optim counts the
 step) and the encoder's param group runs with weight_decay 0. Every other
 parameter that got no gradient gets a zero one, as every leaf of a JAX
 gradient tree exists.
+
+One divergence from the JAX code, kept on purpose: under an optimizer
+with L2 decay inside the gradient (Adam, SGD with momentum, RMSprop, wd >
+0) the JAX step zeroes the frozen encoder's grads before ``tx.update``,
+and the chain's ``add_decayed_weights`` then feeds wd * p into the
+moments (one frozen Adam step at wd 0.1, p = 1 leaves mu 0.01). The port
+keeps the reference trainer's semantics (``requires_grad=False``), which
+are also what the JAX module's own docstring states: the moments stay 0.
+The parameters do not move either way, and AdamW (the live recipe)
+decays outside the moments, so it is not affected.
 """
 from __future__ import annotations
 

@@ -56,7 +56,8 @@ exits non-zero without its last line:
 11. legacy model: the legacy MSVM-UNet (VSSM tiny_0230s + the published
    decoder, 9 classes, seeded random weights) at 224x224, b2 fp32, on the
    card against the CPU (phase 4's tolerance), the launches of one forward
-   (K10 20 times, nothing else), and the bf16 logits against fp32;
+   (K10 20 times, nothing else), and the bf16 logits against fp32; then
+   ``entry.legacy_entry``'s model called once with grad mode on;
 12. legacy serving (K10's main path): ``predict_volume`` over phase 5's
    volumes in bf16 at batch 32 (counters reset just before, read just
    after), then the b128 bf16 throughput as in phase 6;
@@ -83,8 +84,28 @@ exits non-zero without its last line:
    ``quant_scan=True``: b2 card vs CPU at the bf16 tolerance with the
    launches of one forward (K14 26, K1 0); its bf16 logits within 0.05 *
    max|logit| of the same weights' bf16 logits without int8 storage;
-   ``predict_volume`` over phase 5's volumes and the b128 throughput; a
-   forward that requires grad raises the inference-only error.
+   ``predict_volume`` over phase 5's volumes and the b128 throughput; the
+   int8 op with inputs that require grad raises the inference-only error,
+   and ``entry.entry(quant_scan=True)``'s model runs with grad mode on;
+17. legacy scan backward kernels: K8 (``csrc/scan2d.cu``), scan and
+   adjoint modes, at the four tiny_0230s 224x224 SS2D shapes (D 96 to
+   768, past one 128-channel tile) at b2 and b48 fp32 against its plain
+   version (phase 7's tolerance), timed at b48 beside it with the bound;
+18. legacy train step vs CPU: phase 8's check on one unfrozen tiny_0230s
+   b2 fp32 step (loss, every gradient against its tolerance or twice its
+   own reorder floor, the BN running statistics of the 3 LKPE and the
+   FLKPE, K10 20 and K8 40 launches);
+19. legacy trainer (this slice's main path): ``entry.legacy_train_entry``
+   at b48 224x224 bf16 (fp32 parameters), 2 frozen-encoder steps then 4
+   unfrozen (counters reset just before, read just after: K10 20 per step,
+   K8 12 per frozen step and 40 per unfrozen one): finite losses that
+   fall, the encoder unchanged while frozen, ms/step and peak memory; the
+   bf16-vs-fp32 gradient cosine of one b2 step;
+20. selective_scan backward: the op's seven gradients at phase 13's shapes
+   on a batch of 2, card against CPU (fp32 gradients at phase 8's
+   tolerance, those of bf16 inputs at the bf16 one), K11 launched exactly
+   twice per backward on both routes; then the backward at phase 13's full
+   batch timed beside K11's two calls.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path; the last line is
@@ -556,39 +577,50 @@ NOISE_MARGIN = 2.0
 BF16_GRAD_COSINE = 0.9
 
 
-def phase_scan2d(dev, gpu):
-    """K8 against its plain version at every b48 training shape, both
-    modes, fp32 (TF32 off); timed beside the plain version."""
+def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
+                 what="gm_tiny"):
+    """K8 against its plain version at each of ``shapes`` ((tag, calls per
+    unfrozen step, side, D)) at each of ``batches``, both modes, fp32
+    (TF32 off); timed at the last batch beside the plain version. Returns
+    the kernel's entry for the kernels line, and the per-step sums."""
     from ceigm_unet_tpu_torch.ops import quad_scan
     gen = torch.Generator().manual_seed(SEED)
     err = ms = plain_ms = bound = 0.0
-    for tag, calls, S, D in TRAIN_SCAN_SHAPES:
-        shape = (TRAIN_BATCH, 4, S * S, D)
-        # decays in (0, 1), mostly near 1: long memories, as the model's
-        a = torch.sigmoid(torch.randn(shape, generator=gen) * 2 + 2).to(dev)
-        b = torch.randn(shape, generator=gen).to(dev)
-        n = a.numel()
-        for mode, kern, plain in (
-                ("scan", quad_scan.scan2d, quad_scan.scan2d_ref),
-                ("adjoint", quad_scan.scan2d_adjoint,
-                 quad_scan.scan2d_adjoint_ref)):
-            for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
-                e = compare(kern(a, b, S, S, dirs), plain(a, b, S, S, dirs),
-                            torch.float32)
-                err = max(err, e)
-            k_ms = time_ms(lambda: kern(a, b, S, S, dirs), 10)
-            p_ms = time_ms(lambda: plain(a, b, S, S, dirs), 3)
-            # a and b read, the result written, fp32; one FMA per element
-            b_ms = max(12 * n / HBM_BPS, 2 * n / PEAK["fp32"]) * 1e3
-            ms += calls * k_ms
-            plain_ms += calls * p_ms
-            bound += calls * b_ms
-            log(f"kernel scan2d [{tag} {mode}] x{calls}/train step: b48 "
-                f"fp32 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms (bytes), max abs err {e:.3e} | {gpu}")
-        del a, b
-    log(f"kernel scan2d: max abs err fp32 {err:.3e}; per b48 train step "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms")
+    for tag, calls, S, D in shapes:
+        for batch in batches:
+            shape = (batch, 4, S * S, D)
+            # decays in (0, 1), mostly near 1: long memories, as the
+            # model's
+            a = torch.sigmoid(torch.randn(shape, generator=gen) * 2 + 2).to(
+                dev)
+            b = torch.randn(shape, generator=gen).to(dev)
+            n = a.numel()
+            for mode, kern, plain in (
+                    ("scan", quad_scan.scan2d, quad_scan.scan2d_ref),
+                    ("adjoint", quad_scan.scan2d_adjoint,
+                     quad_scan.scan2d_adjoint_ref)):
+                for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+                    e = compare(kern(a, b, S, S, dirs),
+                                plain(a, b, S, S, dirs), torch.float32)
+                    err = max(err, e)
+                if batch != batches[-1]:
+                    continue
+                k_ms = time_ms(lambda: kern(a, b, S, S, dirs), 10)
+                p_ms = time_ms(lambda: plain(a, b, S, S, dirs), 3)
+                # a and b read, the result written, fp32; one FMA per
+                # element
+                b_ms = max(12 * n / HBM_BPS, 2 * n / PEAK["fp32"]) * 1e3
+                ms += calls * k_ms
+                plain_ms += calls * p_ms
+                bound += calls * b_ms
+                log(f"kernel scan2d [{what} {tag} {mode}] x{calls}/train "
+                    f"step: b{batch} fp32 {k_ms:.4f} ms, plain {p_ms:.4f} "
+                    f"ms, bound {b_ms:.4f} ms (bytes), max abs err "
+                    f"{e:.3e} | {gpu}")
+            del a, b
+    log(f"kernel scan2d {what}: max abs err fp32 {err:.3e} at b{batches}; "
+        f"per b{batches[-1]} train step {ms:.3f} ms vs plain "
+        f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
     torch.cuda.empty_cache()
     return dict(name="scan2d", route="cuda",
                 source="ceigm_unet_tpu_torch/csrc/scan2d.cu",
@@ -618,9 +650,11 @@ def grad_tolerance_used(got, want) -> float:
     return ((got - want).abs() / tol).max().item()
 
 
-def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP):
+def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
+                       legacy=False):
     """One unfrozen gm_tiny train step (fp32, TF32 off, b2; the model built
-    with ``routes``, launching ``per_step``) on the card
+    with ``routes``, launching ``per_step``; with ``legacy`` the legacy
+    tiny_0230s model instead) on the card
     and on the CPU from the same weights, batch and drop-path masks (one
     seeded CPU generator on each side): loss, every gradient, the BN
     running statistics, and the card's launches. The CPU step runs again
@@ -628,8 +662,9 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP):
     tensor's gradient is that tensor's noise floor, which the card's
     gradient of it is read against."""
     from ceigm_unet_tpu_torch.entry import synthetic_batch
-    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
     from ceigm_unet_tpu_torch.ops import _build
+    what = "tiny_0230s" if legacy else f"gm_tiny {routes or ''}"
     batch = synthetic_batch(2, PHASE8_IMG, 9, SEED, "cpu")
     threads = torch.get_num_threads()
     reorders = sorted({max(1, threads // 2), max(1, threads // 4), 1}
@@ -640,8 +675,12 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP):
             + [(f"cpu on {n}", "cpu", n) for n in reorders]
             + [("card", dev, threads)]):
         torch.set_num_threads(n_threads)
-        model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
-                            device=device, **(routes or {}))
+        if legacy:
+            model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
+                                       seed=SEED, device=device)
+        else:
+            model = build_model(num_classes=9, enc_name="gm_tiny",
+                                seed=SEED, device=device, **(routes or {}))
         step = _trainer(model, device)
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -698,7 +737,7 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP):
                      f"{e.max().item():.3e}")
             stat_err = max(stat_err, e.max().item())
     n = sum(1 for _ in m_dev.parameters())
-    log(f"train step gm_tiny {routes or ''} {PHASE8_IMG}x{PHASE8_IMG} b2 "
+    log(f"train step {what} {PHASE8_IMG}x{PHASE8_IMG} b2 "
         f"fp32 card vs CPU:"
         f" loss {l_dev:.6f} vs {l_cpu:.6f}; {n} gradients within their "
         f"tolerance or {NOISE_MARGIN}x their own reorder floor (nearest: "
@@ -731,14 +770,19 @@ def _flat_grad(model):
     return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
 
 
-def _train_run(dev, dtype, frozen_flags, routes=None):
-    """``entry.train_entry`` at TRAIN_BATCH built with ``routes``, stepped
-    once per flag (True: encoder frozen), launch counters reset just before
-    and read just after; fails if a frozen step moves the encoder."""
-    from ceigm_unet_tpu_torch.entry import train_entry
+def _train_run(dev, dtype, frozen_flags, routes=None, legacy=False):
+    """``entry.train_entry`` at TRAIN_BATCH built with ``routes`` (with
+    ``legacy``, ``entry.legacy_train_entry``), stepped once per flag (True:
+    encoder frozen), launch counters reset just before and read just after;
+    fails if a frozen step moves the encoder."""
+    from ceigm_unet_tpu_torch.entry import legacy_train_entry, train_entry
     from ceigm_unet_tpu_torch.ops import _build
-    model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED,
-                                     **(routes or {}))
+    if legacy:
+        model, step, batch = legacy_train_entry(dev, dtype, TRAIN_BATCH,
+                                                SEED)
+    else:
+        model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED,
+                                         **(routes or {}))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     enc0 = [p.detach().clone() for p in model.encoder.parameters()]
     torch.cuda.synchronize()
@@ -1022,6 +1066,14 @@ def phase_legacy_model(dev):
         f"{err:.3e} (max|logit| {scale:.3e}, tol rtol {rtol} atol "
         f"{atol}*max); launches {LEGACY_PER_FORWARD}; bf16 vs fp32 CPU max "
         f"abs err {bf_err:.3e} (tol {BF16_MODEL_TOL}*max)")
+    from ceigm_unet_tpu_torch.entry import legacy_entry
+    entry_model, x1 = legacy_entry(dev)
+    out = entry_model(x1)
+    if out.grad_fn is None or not bool(torch.isfinite(out).all()):
+        fail("legacy_entry's model with grad mode on: no graph or non-finite")
+    log(f"legacy_entry's model called as returned, grad mode on: logits "
+        f"{tuple(out.shape)} with a graph")
+    del entry_model, out
     return model
 
 
@@ -1066,6 +1118,7 @@ def phase_selective_scan(dev, gpu):
     del inputs, outs
     torch.cuda.empty_cache()
     return counts
+
 
 # --- phases 14-16: the kernel routes (K6/K7, K13, K14) ----------------------
 
@@ -1302,17 +1355,169 @@ def phase_int8_serving(dev, gpu, base):
     counts = phase_serving(model, dev, gpu, PER_FORWARD_INT8, what)
     log(f"throughput {what}: "
         f"{compare_base(phase_throughput(model, dev, gpu, what), base)}")
+    from ceigm_unet_tpu_torch.entry import entry
+    from ceigm_unet_tpu_torch.ops.quad_scan import quad_scan_ln_cat_q8
+    q = torch.zeros((1, 4, 6, 8), dtype=torch.int8, device=dev)
+    bc = torch.zeros((1, 4, 6), device=dev)
+    kd = [torch.ones((4, 8), device=dev) for _ in range(7)]
+    kd[0].requires_grad_()
     try:
-        model(x[:1].to(dev))
+        quad_scan_ln_cat_q8(q, q, *kd[:2], bc, bc, *kd[2:], 2, 3,
+                            (1, 2, 3, 4))
     except NotImplementedError as e:
         if "inference-only" not in str(e):
             raise
-        log(f"{what}: a forward that requires grad raises: {e}")
+        log(f"{what}: the int8 op with inputs that require grad raises: {e}")
     else:
-        fail(f"{what}: a forward that requires grad did not raise")
-    del model
+        fail(f"{what}: the int8 op with inputs that require grad did not "
+             f"raise")
+    entry_model, x1 = entry(dev, quant_scan=True)
+    out = entry_model(x1)
+    if not bool(torch.isfinite(out).all()):
+        fail("entry(quant_scan=True)'s model: non-finite logits")
+    log(f"{what}: entry(quant_scan=True)'s model runs with grad mode on")
+    del model, entry_model, out
     torch.cuda.empty_cache()
     return counts
+
+
+# --- phases 17-20: the legacy training slice --------------------------------
+
+# (tag, SS2D blocks at that shape, side, D): tiny_0230s 224x224, each
+# block's backward runs K8 once in each mode
+LEGACY_SCAN_SHAPES = [(f"{S}x{S} D{D}", n, S, D)
+                      for S, D, n in LEGACY_SS2D_SHAPES]
+# launches of one unfrozen legacy train step: 20 SS2D forwards (K10), 2
+# K8 calls in each backward; a frozen step runs the 6 decoder SS2Ds' only
+LEGACY_PER_STEP = {"sscan_dir": 20, "scan2d": 40}
+LEGACY_FROZEN_SCANS = 12
+LEGACY_STEPS = [True] * 2 + [False] * 4
+
+
+def phase_legacy_scan2d(dev, gpu):
+    """Phase 17: K8 at the tiny_0230s shapes, b2 and b48 fp32, both modes;
+    timed per unfrozen b48 legacy step."""
+    r = phase_scan2d(dev, gpu, LEGACY_SCAN_SHAPES, (2, TRAIN_BATCH),
+                     "tiny_0230s")
+    return {f"{k}_legacy_step": r[k] for k in ("max_abs_err", "ms",
+                                                "plain_ms", "bound_ms")}
+
+
+def phase_legacy_trainer(dev, gpu):
+    """Phase 19, the slice's main path: ``entry.legacy_train_entry`` at b48
+    bf16 (fp32 parameters), 2 frozen steps then 4 unfrozen (counters reset
+    just before, read just after); then the bf16-vs-fp32 gradient cosine
+    of one b2 step. Returns the launch counts of the b48 steps."""
+    from ceigm_unet_tpu_torch.entry import legacy_train_entry
+    model, enc0, losses, times, counts, mem, *_ = _train_run(
+        dev, torch.bfloat16, LEGACY_STEPS, legacy=True)
+    n_frozen = LEGACY_STEPS.count(True)
+    n_open = len(LEGACY_STEPS) - n_frozen
+    want = {"sscan_dir": LEGACY_PER_STEP["sscan_dir"] * len(LEGACY_STEPS),
+            "scan2d": n_frozen * LEGACY_FROZEN_SCANS
+            + n_open * LEGACY_PER_STEP["scan2d"]}
+    if counts != want:
+        fail(f"legacy trainer: kernel launches {counts}, expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"legacy trainer: losses {losses} not finite or not falling")
+    for name, p in model.named_parameters():
+        if not bool(torch.isfinite(p.grad).all()):
+            fail(f"{name}: non-finite gradient in the last legacy step")
+    moved = sum(not torch.equal(p, q) for p, q in zip(
+        model.encoder.parameters(), enc0))
+    med = statistics.median(times[n_frozen:])
+    log(f"trainer tiny_0230s b{TRAIN_BATCH} 224x224 bf16: losses "
+        f"{[round(v, 5) for v in losses]}; frozen steps "
+        f"{[round(t, 1) for t in times[:n_frozen]]} ms; unfrozen median "
+        f"{med:.3f} ms/step over {n_open} "
+        f"({[round(t, 1) for t in times[n_frozen:]]}), "
+        f"{TRAIN_BATCH * 1e3 / med:.2f} slices/s; peak memory {mem:.2f} GiB; "
+        f"encoder unchanged over the frozen steps, {moved} of {len(enc0)} "
+        f"tensors changed after; launches {counts} | {gpu}")
+    del model, enc0
+    torch.cuda.empty_cache()
+    grads = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model, step, batch = legacy_train_entry(dev, dtype, 2, SEED)
+        step(batch, generator=torch.Generator().manual_seed(SEED))
+        grads.append(_flat_grad(model))
+        del model, step
+    cos = torch.nn.functional.cosine_similarity(
+        grads[0].double(), grads[1].double(), dim=0).item()
+    if not cos >= BF16_GRAD_COSINE:
+        fail(f"legacy bf16 vs fp32 gradient cosine {cos:.6f} < "
+             f"{BF16_GRAD_COSINE}")
+    log(f"trainer tiny_0230s b2 bf16 vs fp32 gradients: cosine {cos:.6f} "
+        f"(fails below {BF16_GRAD_COSINE})")
+    torch.cuda.empty_cache()
+    return counts
+
+
+SS_NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+
+
+def phase_selective_scan_backward(dev, gpu):
+    """Phase 20: the selective_scan op's seven gradients at each of
+    SCAN_CALLS on a batch of 2, card against CPU, with K11 launched exactly
+    twice per backward (counters reset just before the backward, read just
+    after); then each backward at the full batch, timed beside K11's two
+    calls at its row shape. Returns the launches of the batch-2
+    backwards."""
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.ops import selective_scan as ss
+    total = {}
+    for tag, (batch, dim, N, L), sp in SCAN_CALLS:
+        args = scan_inputs(dev, 2, dim, N, L, sp)
+        gy = torch.randn((2, dim, L), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 5))
+        grads = []
+        for device in (dev, "cpu"):
+            leaves = [t.detach().to(device).requires_grad_() for t in args]
+            y = ss.selective_scan(*leaves, delta_softplus=sp,
+                                  out_dtype=torch.float32)
+            if device == dev:
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+            y.backward(gy.to(device))
+            if device == dev:
+                torch.cuda.synchronize()
+                counts = dict(_build.launch_counts)
+                if counts != {"scan_rows": 2}:
+                    fail(f"selective_scan backward [{tag}]: launches "
+                         f"{counts}, expected K11 twice")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            grads.append([t.grad for t in leaves])
+        used = {}
+        for name, got, want in zip(SS_NAMES, *grads):
+            if not bool(torch.isfinite(got).all()):
+                fail(f"selective_scan [{tag}] d{name}: non-finite on the card")
+            if got.dtype == torch.float32:
+                used[name] = round(grad_tolerance_used(got.cpu(), want), 3)
+                if used[name] > 1.0:
+                    fail(f"selective_scan [{tag}] d{name}: card vs CPU uses "
+                         f"{used[name]} of the gradient tolerance")
+            else:
+                compare(got.cpu(), want, torch.bfloat16)
+        # the backward at the full batch, and K11 at its row shape
+        full = [t.detach().requires_grad_() for t in
+                scan_inputs(dev, batch, dim, N, L, sp)]
+        y = ss.selective_scan(*full, delta_softplus=sp,
+                              out_dtype=torch.float32)
+        gfull = torch.ones_like(y)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            y, full, gfull, retain_graph=True), 5)
+        a = torch.rand((batch * dim * N, L), device=dev) * 0.5 + 0.5
+        k11_ms = time_ms(lambda: ss.scan_rows(a, a), 10)
+        log(f"selective_scan backward [{tag}]: b2 card vs CPU, share of "
+            f"the gradient tolerance used by the fp32 grads {used}, bf16 "
+            f"grads within the bf16 tolerance; launches {counts}; b{batch} "
+            f"backward {bwd_ms:.4f} ms, of which K11 2 x {k11_ms:.4f} ms "
+            f"| {gpu}")
+        del full, y, gfull, a
+    torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -1358,6 +1563,18 @@ def main() -> int:
     kernel_route = timed("15 kernel-depthwise and per-group-DySample model",
                          phase_kernel_route, dev, gpu, base, base_step_ms)
     int8 = timed("16 int8 serving", phase_int8_serving, dev, gpu, base)
+    kernels["scan2d"].update(timed("17 legacy scan backward kernels",
+                                   phase_legacy_scan2d, dev, gpu))
+    timed("18 legacy train step vs CPU", phase_train_vs_cpu, dev, gpu, None,
+          LEGACY_PER_STEP, True)
+    legacy_training = timed("19 legacy trainer", phase_legacy_trainer, dev,
+                            gpu)
+    scan_bwd = timed("20 selective_scan backward",
+                     phase_selective_scan_backward, dev, gpu)
+    kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
+    kernels["sscan_dir"]["launches_legacy_trainer"] = \
+        legacy_training["sscan_dir"]
+    kernels["scan_rows"]["launches_backward"] = scan_bwd["scan_rows"]
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
     # op for K11 and K12, the kernel route's trainer for K13 (both modes)

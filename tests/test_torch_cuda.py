@@ -10,6 +10,8 @@ atol 5e-2 * max|plain| (tests/test_kernel_matrix.py's bf16 row).
 Gradients on the card against the CPU: rtol 2e-3 and atol 1e-8 + 2e-3 *
 max|CPU grad| per tensor (tests/test_torch_grad_parity.py's comparison).
 """
+import re
+
 import pytest
 import torch
 
@@ -172,9 +174,12 @@ def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
 
 
 @pytest.mark.parametrize("adjoint", [False, True])
-# gm_tiny b48 224x224: stage 1 (56x56, D 16) and stage 3 (14x14, D 87)
+# gm_tiny b48 224x224: stage 1 (56x56, D 16) and stage 3 (14x14, D 87); the
+# legacy tiny_0230s widths past one 128-channel tile: stage 1 (D 96), a
+# ragged 200 (two tiles of 100), stage 4 (D 768, six tiles)
 @pytest.mark.parametrize("shape", [(48, 56, 56, 16), (48, 14, 14, 87),
-                                   (1, 3, 5, 128)])
+                                   (1, 3, 5, 128), (2, 56, 56, 96),
+                                   (3, 6, 8, 200), (4, 7, 7, 768)])
 def test_scan2d_kernel(dev, shape, adjoint):
     B, H, W, D = shape
     g = torch.Generator().manual_seed(D)
@@ -238,23 +243,38 @@ def test_kernel_ops_keep_the_autograd_graph(dev):
     prm = [_rand(g, (5, 5, 2, 4), dev), *[_rand(g, (4,), dev)] * 3,
            _rand(g, (3,), dev)]
     assert lgag_gate(xs, xs, *prm).grad_fn is not None
+    u = _rand(g, (1, 4, 6, 8), dev).requires_grad_()
+    bc = _rand(g, (1, 4, 6), dev)
+    assert sscan_dir(u, u, bc, bc, *[_rand(g, (4, 8), dev)] * 3, 2, 3,
+                     (1, 2, 3, 4)).grad_fn is not None
+    v = _rand(g, (2, 8, 6), dev).requires_grad_()
+    A = -torch.ones((8, 1), device=dev)
+    B = _rand(g, (2, 1, 6), dev)
+    assert selective_scan(v, v, A, B, B, delta_softplus=True).grad_fn \
+        is not None
     with pytest.raises(RuntimeError, match="no backward"):
         ffn_gemm(x[0], args[1], args[2], torch.float32)
 
 
-def _train_step_card_vs_cpu(dev, routes, want_counts):
-    """One unfrozen AdamW step of gm_test built with ``routes`` (decoder
-    drop-path masks from one CPU generator on both sides): the loss, every
-    parameter's gradient (finite) and the BN running statistics, card
-    against CPU; and the launches of the step."""
+def _train_step_card_vs_cpu(dev, routes, want_counts, build=None,
+                            cancelled=None):
+    """One unfrozen AdamW step of gm_test built with ``routes`` (or of the
+    model ``build(device=...)`` gives; decoder drop-path masks from one CPU
+    generator on both sides): the loss, every parameter's gradient (finite)
+    and the BN running statistics, card against CPU; and the launches of
+    the step. Gradients whose names match ``cancelled`` have a true value
+    of 0 (a per-channel constant ahead of a train-mode BatchNorm): both
+    sides must stay below 1e-4 of the largest CPU gradient."""
+    if build is None:
+        build = lambda device: build_model(enc_name="gm_test", device=device,
+                                           **routes)
     batch = {"image": torch.randn((4, 64, 64, 1), generator=torch.Generator(
         ).manual_seed(1)), "label": torch.randint(0, 9, (4, 64, 64),
                                                    generator=torch.Generator(
                                                    ).manual_seed(2))}
     runs = []
     for device in ("cpu", dev):
-        model = build_model(enc_name="gm_test", device=device,
-                            **routes).train()
+        model = build(device=device).train()
         step = make_train_step(model, make_optimizer(param_groups(model),
                                                      1e-3),
                                cosine_lr(5e-4, 1e-6, 300, 46))
@@ -267,9 +287,14 @@ def _train_step_card_vs_cpu(dev, routes, want_counts):
     assert counts == want_counts
     assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
     cpu_p = dict(m_cpu.named_parameters())
+    top = max(p.grad.abs().max().item() for p in cpu_p.values())
     for name, p in m_dev.named_parameters():
         want = cpu_p[name].grad
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        if cancelled is not None and cancelled.search(name):
+            assert max(p.grad.abs().max().item(),
+                       want.abs().max().item()) <= 1e-4 * top, name
+            continue
         # 1e-8: a bias ahead of a train-mode BatchNorm has a true
         # gradient of 0 and holds only rounding noise (or an exact 0)
         torch.testing.assert_close(
@@ -370,15 +395,16 @@ def test_selective_scan_routes_to_its_kernels(dev):
 
 
 def test_scan_kernels_refuse_inputs_that_require_grad(dev):
+    """The raw row-scan ops (K11, K12), which selective_scan's autograd op
+    calls in no-grad mode, refuse inputs that require grad."""
     g = torch.Generator().manual_seed(2)
     a = _rand(g, (2, 8), dev).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         scan_rows(a, a)
-    u = _rand(g, (1, 4, 6, 8), dev).requires_grad_()
-    bc = _rand(g, (1, 4, 6), dev)
+    u = _rand(g, (2, 4, 6), dev).requires_grad_()
+    bc = _rand(g, (2, 1, 6), dev)
     with pytest.raises(RuntimeError, match="no backward"):
-        sscan_dir(u, u, bc, bc, *[_rand(g, (4, 8), dev)] * 3, 2, 3,
-                  (1, 2, 3, 4))
+        selective_scan_n1(u, u, -torch.ones((4, 1), device=dev), bc, bc)
 
 
 def test_vssm_test_legacy_model_on_card_matches_cpu_and_counts_launches(dev):
@@ -394,6 +420,97 @@ def test_vssm_test_legacy_model_on_card_matches_cpu_and_counts_launches(dev):
     assert dict(_build.launch_counts) == {"sscan_dir": 10}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
                                atol=1e-3 * want.abs().max().item())
+
+
+# --- the legacy training slice: K10's backward through K8, K11's ------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# tiny_0230s stage 3 (14x14, D 384: three channel tiles); a ragged map
+@pytest.mark.parametrize("shape", [(2, 14, 14, 384), (1, 6, 8, 40)])
+def test_sscan_dir_backward_on_card_matches_cpu(dev, shape, dtype):
+    """sscan_dir's seven grads on the card (K10 forward, K8 twice in the
+    backward) against the same autograd op on the CPU; u a stride-0 view
+    over K. fp32 at the gradient tolerance; bf16 grads, rounded from fp32
+    once on each side, at the bf16 one."""
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D)
+    K, L = 4, H * W
+    dt_ = DT[dtype]
+    base = [_rand(g, (B, L, D), dev, 1.0, dt_),
+            _rand(g, (B, K, L, D), dev, 0.5, dt_),
+            _rand(g, (B, K, L), dev, 1.0, dt_),
+            _rand(g, (B, K, L), dev, 1.0, dt_),
+            -torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
+            _rand(g, (K, D), dev)]
+    gy = _rand(g, (B, K, L, D), dev)
+    grads = []
+    for device in (dev, "cpu"):
+        leaves = [t.detach().to(device).requires_grad_() for t in base]
+        u = leaves[0][:, None].expand(B, K, L, D)
+        _build.reset_launch_counts()
+        sscan_dir(u, *leaves[1:], H, W, (1, 2, 3, 4)).backward(gy.to(device))
+        if device == dev:
+            torch.cuda.synchronize()
+            assert dict(_build.launch_counts) == {"sscan_dir": 1,
+                                                  "scan2d": 2}
+        grads.append([t.grad for t in leaves])
+    rtol, atol = (2e-3, 2e-3) if dtype == "float32" else TOL[dtype]
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(
+            got.cpu().float(), want.float(), rtol=rtol,
+            atol=atol * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("N,last", [(1, False), (16, False), (1, True)])
+def test_selective_scan_backward_on_card_matches_cpu(dev, N, last):
+    """selective_scan's seven grads on the card against the CPU, on the K12
+    route (N 1), the K11 route (N 16) and with return_last_state; the
+    backward launches K11 exactly twice on each."""
+    g = torch.Generator().manual_seed(N)
+    batch, dim, L = 2, 16, 300
+    base = [_rand(g, (batch, dim, L), dev),
+            _rand(g, (batch, dim, L), dev, 0.5),
+            -torch.exp(_rand(g, (dim, N), dev, 0.5)),
+            _rand(g, (batch, 2, N, L), dev), _rand(g, (batch, 2, N, L), dev),
+            _rand(g, (dim,), dev), _rand(g, (dim,), dev, 0.3)]
+    gy, gh = _rand(g, (batch, dim, L), dev), _rand(g, (batch, dim, N), dev)
+    grads = []
+    for device in (dev, "cpu"):
+        leaves = [t.detach().to(device).requires_grad_() for t in base]
+        out = selective_scan(*leaves, delta_softplus=True,
+                             return_last_state=last, out_dtype=torch.float32)
+        if device == dev:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+        loss = ((out[0] * gy.to(device)).sum() + (out[1] * gh.to(device))
+                .sum() if last else (out * gy.to(device)).sum())
+        loss.backward()
+        if device == dev:
+            torch.cuda.synchronize()
+            assert dict(_build.launch_counts) == {"scan_rows": 2}
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3,
+                                   atol=2e-3 * want.abs().max().item())
+
+
+# vssm_test biases whose true gradient is 0: a per-channel constant ahead of
+# a train-mode BatchNorm (tests/test_torch_legacy_train.py's list)
+VSSM_TEST_BN_CANCELLED = re.compile(
+    r"(decoder\.(layers\.\d\.up|out_layers\.0)\.expand\.0\.bias"
+    r"|(decoder\.layers\.\d\.vss_layer\.blocks\.1|encoder\.layers\.3\."
+    r"blocks\.0)\.mlp\.(fc2|multiscale_conv\.dwconv_(hw\.2|w\.1|h\.1))"
+    r"\.bias)$")
+
+
+def test_vssm_test_legacy_train_step_on_card_matches_cpu(dev):
+    # 10 SS2D blocks: K10 once each forward, K8 twice each backward
+    _train_step_card_vs_cpu(
+        dev, {}, {"sscan_dir": 10, "scan2d": 20},
+        build=lambda device: build_legacy_model(enc_name="vssm_test",
+                                                device=device),
+        cancelled=VSSM_TEST_BN_CANCELLED)
 
 
 # --- the kernel routes: K6/K7 (single-grid grid-sample), K13, K14 ------------

@@ -339,8 +339,10 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.models.vmamba, "
             "ceigm_unet_tpu_torch.ops.cross_scan, "
             "ceigm_unet_tpu_torch.ops.selective_scan, "
-            "ceigm_unet_tpu_torch.ops.dwconv; "
+            "ceigm_unet_tpu_torch.ops.dwconv, "
+            "ceigm_unet_tpu_torch.kernel_ab; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
+            "from ceigm_unet_tpu_torch.entry import legacy_train_entry; "
             "from ceigm_unet_tpu_torch.ops.grid_sample import "
             "grid_sample_bilinear_fused, dysample_grid_sample_pergroup; "
             "from ceigm_unet_tpu_torch.ops.quad_scan import "

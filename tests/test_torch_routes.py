@@ -320,6 +320,26 @@ def test_quant_scan_refuses_autograd():
         quad_scan_ln_cat_q8(*[a[k] for k in ORDER], 2, 3, (1, 2, 3, 4))
 
 
+def test_entry_models_run_with_grad_mode_on():
+    """entry(quant_scan=True) hands back a model whose parameters do not
+    require grad, so ``m(x)`` runs as returned, with grad mode on, while the
+    int8 op still refuses inputs that require grad; legacy_entry's model
+    runs the same way (its scan ops have a backward)."""
+    from ceigm_unet_tpu_torch.entry import entry, legacy_entry
+    assert torch.is_grad_enabled()
+    m, x = entry(device="cpu", quant_scan=True)
+    assert not any(p.requires_grad for p in m.parameters())
+    out = m(x)
+    assert out.shape == (1, 224, 224, 9) and bool(torch.isfinite(out).all())
+    a = _q8_inputs(1, 1, 2, 3, 4)
+    a["su"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        quad_scan_ln_cat_q8(*[a[k] for k in ORDER], 2, 3, (1, 2, 3, 4))
+    m, x = legacy_entry(device="cpu")
+    out = m(x)
+    assert out.shape == (1, 224, 224, 9) and out.requires_grad
+
+
 # --- the routes through the model --------------------------------------------
 
 def test_routes_are_build_arguments_with_the_jax_defaults():
