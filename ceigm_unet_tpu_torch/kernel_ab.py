@@ -1,4 +1,4 @@
-"""Time a kernel as this checkout builds it against the same entry point
+"""Time kernels as this checkout builds them against the same entry points
 built from another checkout's ``csrc/``, on one card, in turns.
 
     python -m ceigm_unet_tpu_torch.kernel_ab --base OTHER/ceigm_unet_tpu_torch/csrc
@@ -9,8 +9,14 @@ events in the order base, this, this, base; the line per case prints both
 medians and the bound. The cases are K8 (``scan2d``, scan and adjoint
 modes) at the b48 224x224 training shapes of gm_tiny (D <= 128, which
 both versions take) and of the legacy tiny_0230s (for this checkout
-alone where the base refuses D > 128). Prints the card's name and power
-limit first.
+alone where the base refuses D > 128), and K3's GEMM (``cffn_gemm``) at
+the six fc1/fc2 shapes of a b128 bf16 224x224 gm_tiny forward, beside the
+bf16-output ``torch.addmm`` and, for fc1, the fp32-output one (the same
+function). This checkout's GEMM is timed through ``ffn_gemm``, its
+wrapper's padding included, and alone on the padded operands; the base's
+entry point is called directly, with bf16 weights as (K, N) rows when its
+``csrc/`` predates ``cffn_gemm.cu`` and as (N, K) rows otherwise. Prints
+the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ from pathlib import Path
 
 import torch
 
-from ceigm_unet_tpu_torch.ops import _build, quad_scan
+from ceigm_unet_tpu_torch.ops import _build, ffn, quad_scan
 
 HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
 # (tag, calls per unfrozen b48 step: the SS2D or quad blocks at that shape,
 # side, D); each block's backward runs K8 once in each mode
 GM_TINY = [("gm_tiny 56x56 D16", 5, 56, 16), ("gm_tiny 28x28 D32", 6, 28, 32),
@@ -33,6 +40,13 @@ LEGACY = [("tiny_0230s 56x56 D96", 4, 56, 96),
           ("tiny_0230s 28x28 D192", 4, 28, 192),
           ("tiny_0230s 14x14 D384", 10, 14, 384),
           ("tiny_0230s 7x7 D768", 2, 7, 768)]
+# (tag, calls per b128 forward, H*W, K, N, fc2): fc1 and fc2 of the 7
+# decoder CustomFfns (3 at 14x14, 2 at 28x28, 2 at 56x56)
+FFN = [(f"fc{2 if fc2 else 1} {s}x{s} {k}->{n}", calls, s * s, k, n, fc2)
+       for fc2 in (False, True)
+       for s, c, h, calls in ((14, 348, 1392, 3), (28, 128, 512, 2),
+                              (56, 64, 256, 2))
+       for k, n in [(h, c) if fc2 else (c, h)]]
 
 
 def _scan2d(lib, a, b, S, adjoint):
@@ -58,33 +72,31 @@ def _time(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--base", required=True, type=Path,
-                    help="the other checkout's ceigm_unet_tpu_torch/csrc")
-    ap.add_argument("--batch", type=int, default=48)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"device: {gpu}", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = {"base": _build.load(_build.build(args.base.resolve(),
-                                                 Path(tmp))),
-                "this": _build.library()}
+def _gemm(lib, a, w, bias, out_dtype, rows_nk):
+    """The C entry ``cffn_gemm`` of ``lib``; w is the bf16 weight in the
+    layout that library takes."""
+    M, K = a.shape
+    N = w.shape[0] if rows_nk else w.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    codes = _build.DTYPE_CODES
+    err = lib.cffn_gemm(_build.ptr(a), _build.ptr(w), _build.ptr(bias),
+                        _build.ptr(out), M, N, K, codes[a.dtype],
+                        codes[w.dtype], codes[out_dtype],
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"cffn_gemm failed to launch: cudaError_t {err}")
+    return out
+
+
+def scan2d_cases(libs, batch, gpu, gen):
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
     totals = {}
     for group, cases in (("gm_tiny", GM_TINY), ("tiny_0230s", LEGACY)):
         # the base kernel may refuse D > 128: then this checkout's alone
         names = (["base", "this"] if all(D <= 128 for *_, D in cases)
                  else ["this"])
         for tag, calls, S, D in cases:
-            shape = (args.batch, 4, S * S, D)
+            shape = (batch, 4, S * S, D)
             a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)
                               * 2 + 2)
             b = torch.randn(shape, generator=gen, device=dev)
@@ -108,14 +120,93 @@ def main() -> int:
                         + calls * v
                 totals[group, "bound"] = totals.get((group, "bound"), 0.0) \
                     + calls * bound
-                print(f"scan2d [{tag} {mode}] b{args.batch} fp32: "
+                print(f"scan2d [{tag} {mode}] b{batch} fp32: "
                       + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
                       + f", bound {bound:.4f} ms | {gpu}", flush=True)
             del a, b, plain
-        print(f"scan2d per b{args.batch} unfrozen {group} step: "
+        print(f"scan2d per b{batch} unfrozen {group} step: "
               + ", ".join(f"{n} {totals[group, n]:.3f} ms" for n in
                           ("base", "this", "bound") if (group, n) in totals),
               flush=True)
+
+
+def gemm_cases(base_lib, this_lib, base_rows_nk, gpu, gen):
+    """K3's GEMM at the b128 bf16 forward's six shapes, each held against
+    ffn_gemm_ref (fp32 out: rtol 1e-4, atol 1e-4 * max; bf16 out: rtol
+    1e-2, atol 1e-2 * max) on both libraries."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    totals = {}
+    for tag, calls, L, K, N, fc2 in FFN:
+        M = 128 * L
+        a = torch.randn((M, K), generator=gen, device=dev).to(
+            torch.float32 if fc2 else bf16)
+        # nn.Linear's (N, K) storage; ffn_gemm takes its (K, N) view
+        w_nk = (torch.randn((N, K), generator=gen, device=dev) * 0.05).to(bf16)
+        bias = torch.randn((N,), generator=gen, device=dev) * 0.1
+        od = bf16 if fc2 else torch.float32
+        w_base = w_nk if base_rows_nk else w_nk.t().contiguous()
+        # "this kernel": the launch alone, on the operands ffn_gemm pads
+        a_k, w_k = ffn.gemm_operands(a, w_nk.t())
+        runs = {"base": lambda: _gemm(base_lib, a, w_base, bias, od,
+                                      base_rows_nk),
+                "this": lambda: ffn.ffn_gemm(a, w_nk.t(), bias, od),
+                "this kernel": lambda: _gemm(this_lib, a_k, w_k, bias, od,
+                                             True)}
+        plain = ffn.ffn_gemm_ref(a, w_nk.t(), bias, od).float()
+        tol = 1e-2 if fc2 else 1e-4
+        for n, fn in runs.items():
+            err = (fn().float() - plain).abs()
+            if bool((err > tol * plain.abs().max() + tol * plain.abs()).any()):
+                raise SystemExit(f"{n} cffn_gemm {tag}: max abs err "
+                                 f"{err.max().item():.3e}")
+        ms = {n: [] for n in runs}
+        for n in ["base", "this", "this kernel", "this kernel", "this",
+                  "base"]:
+            ms[n].append(_time(runs[n]))
+        med = {n: statistics.median(v) for n, v in ms.items()}
+        a_w, b_w = a.to(bf16), bias.to(bf16)
+        med["addmm"] = _time(lambda: torch.addmm(b_w, a_w, w_nk.t()))
+        if not fc2:
+            med["addmm fp32 out"] = _time(lambda: torch.addmm(
+                bias, a, w_nk.t(), out_dtype=torch.float32))
+        nbytes = (a.numel() * a.element_size() + 2 * K * N + 4 * N
+                  + M * N * (2 if fc2 else 4))
+        med["bound"] = max(nbytes / HBM_BPS, 2 * M * N * K / BF16_FLOPS) * 1e3
+        for n, v in med.items():
+            totals[n] = totals.get(n, 0.0) + calls * v
+        print(f"cffn_gemm [{tag}] x{calls}/forward b128 bf16: "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
+              + f" | {gpu}", flush=True)
+        del a, w_nk, w_base, a_k, w_k, plain, runs
+    print("cffn_gemm per b128 bf16 forward: "
+          + ", ".join(f"{n} {v:.3f} ms" for n, v in totals.items()),
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", required=True, type=Path,
+                    help="the other checkout's ceigm_unet_tpu_torch/csrc")
+    ap.add_argument("--batch", type=int, default=48,
+                    help="batch of the scan2d cases")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {gpu}", flush=True)
+    base = args.base.resolve()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"base": _build.load(_build.build(base, Path(tmp))),
+                "this": _build.library()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scan2d_cases(libs, args.batch, gpu, gen)
+    gemm_cases(libs["base"], libs["this"], (base / "cffn_gemm.cu").exists(),
+               gpu, gen)
     return 0
 
 

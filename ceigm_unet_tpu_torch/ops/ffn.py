@@ -3,10 +3,11 @@
 Counterpart of ``ceigm_unet_tpu/ops/ffn_pallas.py``: :func:`custom_ffn_fused`
 keeps the argument layout of the JAX entry point (flax kernel layouts:
 w1 (C, HID), dwk (3, 3, 1, HID), inck (7, 7, 1, HID), w2 (HID, C)). For
-CUDA tensors it runs the kernels of ``csrc/cffn.cu`` through
-:func:`ffn_gemm` (fc1, fc2), :func:`dw3_gelu` and :func:`inception7`, with an
-fp32 hidden; for CPU tensors it runs :func:`custom_ffn_fused_ref`, the port of
-``_cffn_ref``. Each of the three wrappers also has its own plain version.
+CUDA tensors it runs the kernels of ``csrc/cffn_gemm.cu`` (:func:`ffn_gemm`,
+fc1 and fc2) and ``csrc/cffn.cu`` (:func:`dw3_gelu`, :func:`inception7`),
+with an fp32 hidden; for CPU tensors it runs :func:`custom_ffn_fused_ref`,
+the port of ``_cffn_ref``. Each of the three wrappers also has its own plain
+version.
 """
 from __future__ import annotations
 
@@ -64,10 +65,31 @@ def ffn_gemm_ref(a, w, bias, out_dtype: torch.dtype):
     return (a.to(w.dtype).float() @ w.float() + bias.float()).to(out_dtype)
 
 
+def gemm_operands(a, w):
+    """a (M, K) and w (K, N) as the bf16-weight kernel's TMA loads take
+    them: a (M, Kp) and w's transpose (N, Kp), K-major, each contiguous and
+    16-byte aligned, with Kp = K rounded up to a multiple of 8 (TMA needs
+    16-byte row pitches) and zeros in the added columns. An operand that
+    already fits is passed as it is: nn.Linear's weight is (N, K) storage,
+    so ``fc.weight.t()`` comes back as that storage without a copy."""
+    K = a.shape[1]
+    Kp = -(-K // 8) * 8
+
+    def fit(t):
+        if t.shape[1] != Kp:
+            return F.pad(t, (0, Kp - K))
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            return t.clone(memory_format=torch.contiguous_format)
+        return t
+    return fit(a), fit(w.t())
+
+
 def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
     """(M, K) @ (K, N) + bias (N,) -> (M, N) in ``out_dtype``, fp32
     accumulation; a is rounded to w's dtype first (fc2 takes the fp32
-    hidden in the compute dtype, as the TPU kernel does)."""
+    hidden in the compute dtype, as the TPU kernel does). On a card, bf16
+    weights go to the TMA/wgmma kernel through :func:`gemm_operands`; fp32
+    weights to the fp32 kernel, which takes w (K, N) row-major."""
     (M, K), N = a.shape, w.shape[1]
     if w.shape[0] != K or bias.shape != (N,):
         raise ValueError(f"ffn_gemm: a {tuple(a.shape)} w {tuple(w.shape)} "
@@ -82,7 +104,11 @@ def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
     if a.device.type != "cuda":
         raise ValueError(f"ffn_gemm: no kernel for {a.device}")
     _build.check_no_grad("ffn_gemm", a, w, bias)
-    ac, wc = a.contiguous(), w.contiguous()
+    if w.dtype == torch.bfloat16:
+        ac, wc = gemm_operands(a, w)
+        K = ac.shape[1]
+    else:
+        ac, wc = a.contiguous(), w.contiguous()
     bf = bias.to(device=a.device, dtype=torch.float32).contiguous()
     _build.check_cuda(ac, wc, bf)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)

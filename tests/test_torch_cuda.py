@@ -27,7 +27,7 @@ from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   dysample_grid_sample_ref,
                                                   grid_sample_bilinear,
                                                   grid_sample_bilinear_fused)
-from ceigm_unet_tpu_torch.ops.ffn import ffn_gemm
+from ceigm_unet_tpu_torch.ops.ffn import ffn_gemm, ffn_gemm_ref
 from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
                                                 quad_scan_ln_cat_q8,
                                                 quad_scan_ln_cat_q8_ref,
@@ -115,6 +115,38 @@ def test_cffn_kernels(dev, HWC, dtype, tap_all):
     n_tap = 0 if tap_all else 3 * gb
     _close(custom_ffn_fused(*args, H, W, n_tap),
            custom_ffn_fused_ref(*args, H, W, n_tap), dtype)
+
+
+@pytest.mark.parametrize("fc2", [False, True])
+@pytest.mark.parametrize("KN", [(348, 348), (128, 512), (512, 128), (64, 256),
+                                (256, 64), (16, 32), (40, 6), (24, 5)])
+def test_ffn_gemm_kernel_sums_every_k_column(dev, KN, fc2):
+    """The bf16-weight GEMM at M 392 (three 128-row tiles and 8 rows), K 348
+    (padded to 352; the last 64-column stage mostly zeros) with N 348 (a
+    partial 128-column tile), the 28x28 and 56x56 widths, K 16 / N 32, and
+    N 6 and 5 (fp32 rows that are no whole 16 bytes: stored from registers,
+    in pairs and singly). Kernel and plain version round the same inputs to
+    bf16 and sum in fp32, so fc1's fp32 output holds rtol 1e-4, atol 1e-4 *
+    max|plain| and fc2's bf16 output two bf16 ulps (1e-2): the plain product
+    without the last 28 columns of K fails that tolerance."""
+    K, N = KN
+    g = torch.Generator().manual_seed(K + N)
+    a = _rand(g, (392, K), dev, 1.0,
+              torch.float32 if fc2 else torch.bfloat16)
+    w = _rand(g, (N, K), dev, .05, torch.bfloat16).t()   # nn.Linear's rows
+    b = _rand(g, (N,), dev, .1)
+    od = torch.bfloat16 if fc2 else torch.float32
+    tol = 1e-2 if fc2 else 1e-4
+
+    def close(got, want):
+        want = want.float()
+        return torch.allclose(got.float(), want, rtol=tol,
+                              atol=tol * want.abs().max().item())
+    got = ffn_gemm(a, w, b, od)
+    assert got.dtype == od and torch.isfinite(got.float()).all()
+    assert close(got, ffn_gemm_ref(a, w, b, od))
+    if K > 28:
+        assert not close(got, ffn_gemm_ref(a[:, :K - 28], w[:K - 28], b, od))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

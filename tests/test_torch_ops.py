@@ -25,7 +25,8 @@ from ceigm_unet_tpu.ops.tapconv import lgag_gate_eval as jlgag
 from ceigm_unet_tpu_torch.ops import _build
 from ceigm_unet_tpu_torch.ops.activations import gelu
 from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused, dw3_gelu,
-                                          ffn_gemm, inception7,
+                                          ffn_gemm, ffn_gemm_ref,
+                                          gemm_operands, inception7,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   grid_sample_bilinear)
@@ -188,6 +189,35 @@ def test_ffn_stages_compose_to_custom_ffn():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("fc2", [False, True])
+def test_gemm_operands_pad_k_for_tma(fc2):
+    """The bf16-weight kernel's operands at K = 348 (fc1 at 14x14): both
+    padded with zero columns to K 352 (16-byte rows for its TMA loads), W as
+    nn.Linear's (N, K) rows, and the padded pair's product equals
+    ffn_gemm_ref's; a pair that already fits passes without a copy, and a
+    transposed weight comes back as (N, K) rows."""
+    rng = np.random.default_rng(7)
+    M, K, N = 392, 348, 96
+    a = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    a = a if fc2 else a.bfloat16()
+    w = torch.from_numpy(rng.standard_normal((N, K), np.float32)
+                         * 0.05).bfloat16()
+    bias = torch.from_numpy(rng.standard_normal(N, np.float32))
+    od = torch.bfloat16 if fc2 else torch.float32
+    ap, wp = gemm_operands(a, w.t())
+    assert ap.shape == (M, 352) and wp.shape == (N, 352)
+    assert ap.is_contiguous() and wp.is_contiguous()
+    assert not ap[:, K:].any() and not wp[:, K:].any()
+    tol = 1e-2 if fc2 else 1e-5
+    torch.testing.assert_close(ffn_gemm_ref(ap, wp.t(), bias, od),
+                               ffn_gemm_ref(a, w.t(), bias, od), rtol=tol,
+                               atol=tol)
+    a2, w2 = gemm_operands(ap, wp.t())
+    assert a2.data_ptr() == ap.data_ptr() and w2.data_ptr() == wp.data_ptr()
+    _, w3 = gemm_operands(ap, wp.t().contiguous())
+    assert w3.is_contiguous() and torch.equal(w3, wp)
+
+
 # --- DySample grouped grid-sample ---------------------------------------------
 
 def _dysample_grid(rng, B, H, W, g, offset_std):
@@ -321,9 +351,9 @@ def test_ffn_gemm_rejects_dtype_pairs_the_kernel_lacks():
 
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build.sources())
-    assert names == ["cffn.cu", "common.cuh", "dwconv3.cu", "grid_sample.cu",
-                     "lgag.cu", "quad_scan_ln.cu", "scan2d.cu",
-                     "scan_rows.cu", "sscan_dir.cu"]
+    assert names == ["cffn.cu", "cffn_gemm.cu", "common.cuh", "dwconv3.cu",
+                     "grid_sample.cu", "lgag.cu", "quad_scan_ln.cu",
+                     "scan2d.cu", "scan_rows.cu", "sscan_dir.cu"]
     assert _build.source_hash() == _build.source_hash()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
