@@ -14,9 +14,17 @@ the six fc1/fc2 shapes of a b128 bf16 224x224 gm_tiny forward, beside the
 bf16-output ``torch.addmm`` and, for fc1, the fp32-output one (the same
 function). This checkout's GEMM is timed through ``ffn_gemm``, its
 wrapper's padding included, and alone on the padded operands; the base's
-entry point is called directly, with bf16 weights as (K, N) rows when its
-``csrc/`` predates ``cffn_gemm.cu`` and as (N, K) rows otherwise. Prints
-the card's name and power limit first.
+entry point is called directly: on x as it is, with bf16 weights as
+(K, N) rows, when its ``csrc/`` predates ``cffn_gemm.cu``, and otherwise on
+the padded operands of this checkout's launch. Then the
+grid-sample kernels (``csrc/grid_sample.cu``) at the b128 bf16 224x224
+forward's shapes: K4 (``dysample_grid_sample``, 4 groups) at DySample's
+three upsamplings, and K6/K7 (``grid_sample_bilinear``) at the per-group
+images of the ``dysample_grouped=False`` route and one non-2x size, each
+entry point called directly on both libraries, beside ``F.grid_sample``
+on the same data. These are device times: the queue is held behind a
+spin kernel while the timed calls are enqueued, so host time per call
+does not enter. Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -27,8 +35,9 @@ import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-from ceigm_unet_tpu_torch.ops import _build, ffn, quad_scan
+from ceigm_unet_tpu_torch.ops import _build, ffn, grid_sample, quad_scan
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -48,6 +57,21 @@ FFN = [(f"fc{2 if fc2 else 1} {s}x{s} {k}->{n}", calls, s * s, k, n, fc2)
                               (56, 64, 256, 2))
        for k, n in [(h, c) if fc2 else (c, h)]]
 
+# (tag, calls per b128 forward, images, H, W, C, Ho, Wo, groups; 0 for the
+# single-grid entry point)
+GRID_SAMPLE = [
+    ("K4 7->14 C448", 1, 128, 7, 7, 448, 14, 14, 4),
+    ("K4 14->28 C348", 1, 128, 14, 14, 348, 28, 28, 4),
+    ("K4 28->56 C128", 1, 128, 28, 28, 128, 56, 56, 4),
+    ("K6/K7 7->14 C112 x4 groups", 1, 512, 7, 7, 112, 14, 14, 0),
+    ("K6/K7 14->28 C87 x4 groups", 1, 512, 14, 14, 87, 28, 28, 0),
+    ("K6/K7 28->56 C32 x4 groups", 1, 512, 28, 28, 32, 56, 56, 0),
+    ("K7 14x14->20x24 C87 (not on the path)", 0, 128, 14, 14, 87, 20, 24,
+     0)]
+# spin cycles ahead of a device timing (~20 ms at the H100's clock): the
+# host enqueues the timed calls meanwhile
+SPIN_CYCLES = 40_000_000
+
 
 def _scan2d(lib, a, b, S, adjoint):
     out = torch.empty_like(a)
@@ -64,6 +88,22 @@ def _time(fn, reps=10):
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_time(fn, reps=20):
+    """ms per call of the device's work alone: the calls are enqueued
+    behind a spin kernel, so the host's time per call does not enter."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -145,10 +185,13 @@ def gemm_cases(base_lib, this_lib, base_rows_nk, gpu, gen):
         w_nk = (torch.randn((N, K), generator=gen, device=dev) * 0.05).to(bf16)
         bias = torch.randn((N,), generator=gen, device=dev) * 0.1
         od = bf16 if fc2 else torch.float32
-        w_base = w_nk if base_rows_nk else w_nk.t().contiguous()
-        # "this kernel": the launch alone, on the operands ffn_gemm pads
+        # "this kernel": the launch alone, on the operands ffn_gemm pads;
+        # a base with cffn_gemm.cu takes the same padded operands, an older
+        # one x as it is and the weight as (K, N) rows
         a_k, w_k = ffn.gemm_operands(a, w_nk.t())
-        runs = {"base": lambda: _gemm(base_lib, a, w_base, bias, od,
+        a_base, w_base = (a_k, w_k) if base_rows_nk else (
+            a, w_nk.t().contiguous())
+        runs = {"base": lambda: _gemm(base_lib, a_base, w_base, bias, od,
                                       base_rows_nk),
                 "this": lambda: ffn.ffn_gemm(a, w_nk.t(), bias, od),
                 "this kernel": lambda: _gemm(this_lib, a_k, w_k, bias, od,
@@ -178,10 +221,86 @@ def gemm_cases(base_lib, this_lib, base_rows_nk, gpu, gen):
         print(f"cffn_gemm [{tag}] x{calls}/forward b128 bf16: "
               + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
               + f" | {gpu}", flush=True)
-        del a, w_nk, w_base, a_k, w_k, plain, runs
+        del a, w_nk, a_base, w_base, a_k, w_k, plain, runs
     print("cffn_gemm per b128 bf16 forward: "
           + ", ".join(f"{n} {v:.3f} ms" for n, v in totals.items()),
           flush=True)
+
+
+def _grid_sample(lib, x, grid, groups):
+    """The C entry ``dysample_grid_sample`` (groups > 0) or
+    ``grid_sample_bilinear`` (0) of ``lib``."""
+    B, H, W, C = x.shape
+    Ho, Wo = grid.shape[1:3]
+    out = torch.empty((B, Ho, Wo, C), dtype=x.dtype, device=x.device)
+    args = [_build.ptr(x), _build.ptr(grid), _build.ptr(out), B, H, W, C,
+            Ho, Wo] + ([groups] if groups else [])
+    fn = lib.dysample_grid_sample if groups else lib.grid_sample_bilinear
+    err = fn(*args, _build.dtype_code(x),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"grid sample failed to launch: cudaError_t {err}")
+    return out
+
+
+def grid_sample_cases(libs, gpu, gen):
+    """K4 and K6/K7 at the b128 bf16 forward's shapes, each held against
+    its plain version at the bf16 tolerance (rtol 3e-2, atol 5e-2 * max)
+    on both libraries, then timed in turns beside F.grid_sample."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    totals = {}
+    for tag, calls, n, H, W, C, Ho, Wo, groups in GRID_SAMPLE:
+        x = torch.randn((n, H, W, C), generator=gen, device=dev).to(bf16)
+        ys = (torch.arange(Ho, device=dev) + 0.5) * 2 / Ho - 1
+        xs = (torch.arange(Wo, device=dev) + 0.5) * 2 / Wo - 1
+        base = torch.stack(torch.meshgrid(ys, xs, indexing="ij")[::-1], -1)
+        g = groups or 1
+        grid = (base[None, :, :, None, :] + torch.randn(
+            (n, Ho, Wo, g, 2), generator=gen, device=dev) * (0.1 / H))
+        if groups:
+            cg = C // groups
+            plain = grid_sample.dysample_grid_sample_ref(x, grid)
+            # the regrouped batch F.grid_sample takes, built outside the
+            # timing
+            xl = x.reshape(n, H, W, g, cg).permute(0, 3, 4, 1, 2).reshape(
+                n * g, cg, H, W)
+            gl = grid.permute(0, 3, 1, 2, 4).reshape(n * g, Ho, Wo, 2)
+        else:
+            grid = grid[:, :, :, 0].contiguous()
+            plain = grid_sample.grid_sample_bilinear(x, grid)
+            # the channels-last NCHW view of x, as phase 14 of chip_smoke
+            xl, gl = x.permute(0, 3, 1, 2), grid
+        gl = gl.to(bf16)
+        plain = plain.float()
+        scale = plain.abs().max().item()
+        for name, lib in libs.items():
+            err = (_grid_sample(lib, x, grid, groups).float() - plain).abs()
+            if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                raise SystemExit(f"{name} grid sample {tag}: max abs err "
+                                 f"{err.max().item():.3e}")
+        ms = {name: [] for name in libs}
+        for name in ["base", "this", "this", "base"]:
+            ms[name].append(device_time(
+                lambda: _grid_sample(libs[name], x, grid, groups)))
+        med = {name: statistics.median(v) for name, v in ms.items()}
+        med["F.grid_sample"] = device_time(lambda: F.grid_sample(
+            xl, gl, mode="bilinear", padding_mode="border",
+            align_corners=False))
+        nbytes = 2 * n * (H * W + Ho * Wo) * C + 8 * n * Ho * Wo * g
+        med["bound"] = nbytes / HBM_BPS * 1e3
+        kernel = "K4" if groups else "K6/K7"
+        for name, v in med.items():
+            totals[kernel, name] = totals.get((kernel, name), 0.0) \
+                + calls * v
+        print(f"grid sample [{tag}] x{calls}/forward b128 bf16: "
+              + ", ".join(f"{name} {v:.4f} ms" for name, v in med.items())
+              + f" | {gpu}", flush=True)
+        del x, grid, plain, xl, gl
+    for kernel in ("K4", "K6/K7"):
+        print(f"grid sample {kernel} per b128 bf16 forward: "
+              + ", ".join(f"{name} {v:.4f} ms" for (k, name), v in
+                          totals.items() if k == kernel), flush=True)
 
 
 def main() -> int:
@@ -207,6 +326,7 @@ def main() -> int:
     scan2d_cases(libs, args.batch, gpu, gen)
     gemm_cases(libs["base"], libs["this"], (base / "cffn_gemm.cu").exists(),
                gpu, gen)
+    grid_sample_cases(libs, gpu, gen)
     return 0
 
 

@@ -15,7 +15,13 @@ exits non-zero without its last line:
    large enough that every grid-stride loop repeats), where kernel and
    plain version are also timed with CUDA events; ``cffn_gemm`` is held
    tighter: its fp32 output (fc1) at the fp32 tolerance and its bf16 output
-   (fc2) at rtol 1e-2, atol 1e-2 * max|plain| (two bf16 ulps);
+   (fc2) at rtol 1e-2, atol 1e-2 * max|plain| (two bf16 ulps); K4
+   (``dysample_grid_sample``) also on a grid far outside [-1, 1] (the
+   border clamp on all four edges) at C 348, where channel vectors
+   straddle two groups; each kernel and the library call beside it are
+   also timed as the device's work alone (``device_ms``,
+   ``library_device_ms``: the calls queue behind a spin kernel, so the
+   host's time per call does not enter);
 4. model: MSVM-UNet gm_tiny (9 classes, seeded random weights) at 224x224,
    batch 2, fp32 on the card against the same model on the CPU (rtol 1e-3,
    atol 1e-3 * max|CPU logits|), and the kernel launches of one forward;
@@ -69,7 +75,8 @@ exits non-zero without its last line:
    CPU, and each call timed;
 14. route kernels: the single-grid grid-sample (``csrc/grid_sample.cu``
    ``grid_sample_bilinear``; K6/K7) at DySample's three per-group 224x224
-   shapes and one non-2x size, K13 (``csrc/dwconv3.cu``) forward and flip
+   shapes, one non-2x size, a grid far outside [-1, 1] and a C 348 image,
+   K13 (``csrc/dwconv3.cu``) forward and flip
    mode and K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln_q8``) at every
    gm_tiny quad-block shape, each at b2 fp32, b2 bf16 and b128 bf16
    against its plain version (phase 3's tolerances; K14's bf16 output at
@@ -110,7 +117,9 @@ exits non-zero without its last line:
    batch timed beside K11's two calls.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
-entry point with its launches on its own main path; the last line is
+entry point with its launches on its own main path (those of phases 3,
+10 and 14 also with ``device_ms`` and ``library_device_ms``, the same
+calls timed as the device's work alone); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -296,7 +305,9 @@ def kernel_cases(dev):
                         M * (2 * g * (9 + 25 + 49) + 2 * HID), "fp32")
         return make
 
-    def gsample(H, W, C):
+    def gsample(H, W, C, spread=None):
+        # spread: the offsets' scale in normalised units (default 0.1
+        # pixel)
         def make(B, dt):
             x = rnd((B, H, W, C), 1.0, dt)
             ys = (torch.arange(2 * H) + 0.5) / H - 1
@@ -304,7 +315,7 @@ def kernel_cases(dev):
             base = torch.stack(torch.meshgrid(ys, xs, indexing="ij")[::-1],
                                dim=-1)
             grid = base[None, :, :, None, :].to(dev) + rnd(
-                (B, 2 * H, 2 * W, 4, 2), 0.1 / H)
+                (B, 2 * H, 2 * W, 4, 2), spread or 0.1 / H)
             g, cg, P = 4, C // 4, 4 * H * W
             # the regrouped batch F.grid_sample takes, built outside the
             # timing
@@ -363,7 +374,10 @@ def kernel_cases(dev):
                                  "ceigm_unet_tpu/ops/grid_sample.py:432", [
                                      ("7->14 C448", 1, gsample(7, 7, 448)),
                                      ("14->28 C348", 1, gsample(14, 14, 348)),
-                                     ("28->56 C128", 1, gsample(28, 28, 128))]),
+                                     ("28->56 C128", 1, gsample(28, 28, 128)),
+                                     ("14->28 C348, grid far outside [-1, 1]"
+                                      " (not on the path)", 0,
+                                      gsample(14, 14, 348, 4.0))]),
         "lgag_gate": ("cuda", src + "lgag.cu",
                       "ceigm_unet_tpu/ops/tapconv.py:117", [
                           ("14x14 C348", 1, lgag(14, 14, 348)),
@@ -375,13 +389,17 @@ def kernel_cases(dev):
 def phase_kernels(dev, gpu, kernels, per="forward"):
     """Each kernel of ``kernels`` (as :func:`kernel_cases` gives them)
     against its plain version at b2 fp32, b2 bf16 and b128 bf16, and timed
-    at b128 bf16 per ``per`` (the forward, or the backward of one)."""
+    at b128 bf16 per ``per`` (the forward, or the backward of one): with
+    the host in the loop (``ms``, ``library_ms``) and as the device's work
+    alone, the calls queued behind a spin kernel (``device_ms``,
+    ``library_device_ms``)."""
+    from ceigm_unet_tpu_torch.kernel_ab import device_time
     results = {}
     bf16 = torch.bfloat16
     for name, (route, source, replaces, cases) in kernels.items():
         errs = {(2, torch.float32): 0.0, (2, bf16): 0.0, (128, bf16): 0.0}
-        ms = plain_ms = bound = bytes_ms = ops_ms = 0.0
-        library_ms = None
+        ms = plain_ms = bound = bytes_ms = ops_ms = dev_ms = 0.0
+        library_ms = library_dev_ms = None
         for tag, calls, make in cases:
             for batch, dt in errs:
                 case = make(batch, dt)
@@ -389,7 +407,9 @@ def phase_kernels(dev, gpu, kernels, per="forward"):
                 errs[batch, dt] = max(errs[batch, dt], err)
             # case: the batch-128 bf16 call, already checked
             k_ms, p_ms = time_ms(case.kern, 10), time_ms(case.plain, 3)
+            kd_ms = device_time(case.kern, 10)
             ms += calls * k_ms
+            dev_ms += calls * kd_ms
             plain_ms += calls * p_ms
             bound += calls * case.bound_ms()
             bytes_ms += calls * case.nbytes / HBM_BPS * 1e3
@@ -397,18 +417,22 @@ def phase_kernels(dev, gpu, kernels, per="forward"):
             lib = "none"
             if case.library is not None:
                 lib_ms = time_ms(case.library, 10)
+                libd_ms = device_time(case.library, 10)
                 library_ms = (library_ms or 0.0) + calls * lib_ms
-                lib = f"{lib_ms:.4f} ms"
+                library_dev_ms = (library_dev_ms or 0.0) + calls * libd_ms
+                lib = f"{lib_ms:.4f} ms (device {libd_ms:.4f} ms)"
             log(f"kernel {name} [{tag}] x{calls}/{per}: b128 bf16 "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib}, bound "
+                f"{k_ms:.4f} ms (device {kd_ms:.4f} ms), plain "
+                f"{p_ms:.4f} ms, library {lib}, bound "
                 f"{case.bound_ms():.4f} ms ({case.bound_by()}), max abs err "
                 f"{err:.3e} | {gpu}")
             del case
         log(f"kernel {name}: max abs err b2 fp32 "
             f"{errs[2, torch.float32]:.3e}, b2 bf16 {errs[2, bf16]:.3e}, "
             f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 {per} "
-            f"{ms:.3f} ms vs plain {plain_ms:.3f} ms, library "
-            f"{library_ms}, bound {bound:.4f} ms")
+            f"{ms:.3f} ms (device {dev_ms:.3f} ms) vs plain "
+            f"{plain_ms:.3f} ms, library {library_ms} (device "
+            f"{library_dev_ms}), bound {bound:.4f} ms")
         results[name] = dict(
             name=name, route=route, source=source, replaces=replaces,
             max_abs_err=errs[2, torch.float32],
@@ -416,7 +440,8 @@ def phase_kernels(dev, gpu, kernels, per="forward"):
             max_abs_err_bf16_b128=errs[128, bf16], ms=ms, plain_ms=plain_ms,
             bound_ms=bound,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=library_ms)
+            library_ms=library_ms, device_ms=dev_ms,
+            library_device_ms=library_dev_ms)
     torch.cuda.empty_cache()
     return results
 
@@ -1167,7 +1192,8 @@ def route_kernel_cases(dev):
     def rnd(shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
 
-    def gs1(H, W, C, Ho, Wo, groups):
+    def gs1(H, W, C, Ho, Wo, groups, spread=None):
+        # spread: as gsample's in phase 3
         def make(B, dt):
             n = groups * B
             x = rnd((n, H, W, C), 1.0, dt)
@@ -1175,7 +1201,7 @@ def route_kernel_cases(dev):
             xs = (torch.arange(Wo) + 0.5) * 2 / Wo - 1
             base = torch.stack(torch.meshgrid(ys, xs, indexing="ij")[::-1],
                                dim=-1)
-            grid = base[None].to(dev) + rnd((n, Ho, Wo, 2), 0.1 / H)
+            grid = base[None].to(dev) + rnd((n, Ho, Wo, 2), spread or 0.1 / H)
             # F.grid_sample on the channels-last NCHW view of x, with the
             # grid in x's dtype (it requires one dtype)
             xv, gv = x.permute(0, 3, 1, 2), grid.to(dt)
@@ -1245,7 +1271,11 @@ def route_kernel_cases(dev):
                                                      4))
              for H, W, C in PERGROUP_SHAPES]
             + [("14x14->20x24 C87 (not on the path)", 0,
-                gs1(14, 14, 87, 20, 24, 1))]),
+                gs1(14, 14, 87, 20, 24, 1)),
+               ("14->28 C87 x4 groups, grid far outside [-1, 1] (not on the "
+                "path)", 0, gs1(14, 14, 87, 28, 28, 4, 4.0)),
+               ("14->28 C348 (not on the path)", 0,
+                gs1(14, 14, 348, 28, 28, 1))]),
         "dwconv3x3": ("cuda", src + "dwconv3.cu",
                       "ceigm_unet_tpu/ops/quad_scan_bl.py:574",
                       [(f"{S}x{S} C{C}", n, dw(S, C, False))

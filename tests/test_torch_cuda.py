@@ -150,10 +150,15 @@ def test_ffn_gemm_kernel_sums_every_k_column(dev, KN, fc2):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# batch 32 at 28->56 (12.8M outputs) repeats the kernel's grid-stride loop
+# batch 32 at 28->56 (12.8M outputs) runs many blocks; C 348 (cg 87) has
+# channel items that straddle two groups; C 12 (cg 3) has groups narrower
+# than an item, on 24-byte rows
 @pytest.mark.parametrize("BHWC", [(2, 7, 7, 448), (2, 28, 28, 128),
-                                  (32, 28, 28, 128)])
-@pytest.mark.parametrize("offset_scale", [0.1, 3.0])
+                                  (32, 28, 28, 128), (2, 14, 14, 348),
+                                  (2, 5, 7, 12)])
+# offsets in pixels; at 60 most of the grid lies far outside [-1, 1], so
+# the border clamp acts on all four edges
+@pytest.mark.parametrize("offset_scale", [0.1, 3.0, 60.0])
 def test_grid_sample_kernel(dev, BHWC, dtype, offset_scale):
     B, H, W, C = BHWC
     g = torch.Generator().manual_seed(C)
@@ -163,6 +168,8 @@ def test_grid_sample_kernel(dev, BHWC, dtype, offset_scale):
         - 1, indexing="ij")[::-1], dim=-1)                  # (2H, 2W, 2)
     grid = base[None, :, :, None, :].to(dev) + _rand(
         g, (B, 2 * H, 2 * W, 4, 2), dev, offset_scale / max(H, W))
+    if offset_scale > 10:
+        assert (grid < -2).any() and (grid > 2).any()
     _close(dysample_grid_sample(x, grid), dysample_grid_sample_ref(x, grid),
            dtype)
 
@@ -548,16 +555,21 @@ def test_vssm_test_legacy_train_step_on_card_matches_cpu(dev):
 # --- the kernel routes: K6/K7 (single-grid grid-sample), K13, K14 ------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# DySample's per-group images at 224x224 and batch 2 (4 groups each), and a
-# non-2x output
-@pytest.mark.parametrize("shape", [(8, 7, 7, 112, 14, 14),
-                                   (8, 14, 14, 87, 28, 28),
-                                   (8, 28, 28, 32, 56, 56),
-                                   (2, 9, 13, 20, 11, 30)])
-def test_grid_sample_bilinear_kernel(dev, shape, dtype):
+# DySample's per-group images at 224x224 and batch 2 (4 groups each), a
+# non-2x output, an odd C (13: 26- and 52-byte rows, one element per
+# access) and 24-byte bf16 rows (8-byte aligned, not 16); x_offset starts
+# x one element into its storage, so its pointer is not 16-byte aligned
+@pytest.mark.parametrize("shape,x_offset", [
+    ((8, 7, 7, 112, 14, 14), 0), ((8, 14, 14, 87, 28, 28), 0),
+    ((8, 28, 28, 32, 56, 56), 0), ((2, 9, 13, 20, 11, 30), 0),
+    ((3, 6, 5, 13, 9, 11), 0), ((2, 5, 7, 12, 10, 14), 0),
+    ((2, 7, 7, 112, 14, 14), 1)])
+def test_grid_sample_bilinear_kernel(dev, shape, x_offset, dtype):
     B, H, W, C, Ho, Wo = shape
     g = torch.Generator().manual_seed(C)
-    x = _rand(g, (B, H, W, C), dev, 1.0, DT[dtype])
+    n = B * H * W * C
+    x = _rand(g, (n + x_offset,), dev, 1.0, DT[dtype])[x_offset:].view(
+        B, H, W, C)
     grid = (torch.rand((B, Ho, Wo, 2), generator=g) * 2.4 - 1.2).to(dev)
     got = grid_sample_bilinear_fused(x, grid)
     assert got.dtype == DT[dtype]
