@@ -22,9 +22,17 @@ forward's shapes: K4 (``dysample_grid_sample``, 4 groups) at DySample's
 three upsamplings, and K6/K7 (``grid_sample_bilinear``) at the per-group
 images of the ``dysample_grouped=False`` route and one non-2x size, each
 entry point called directly on both libraries, beside ``F.grid_sample``
-on the same data. These are device times: the queue is held behind a
-spin kernel while the timed calls are enqueued, so host time per call
-does not enter. Prints the card's name and power limit first.
+on the same data. Then K13 (``csrc/dwconv3.cu``) in both modes at the four
+quad-block shapes of a b128 bf16 gm_tiny forward (the forward on the
+in-projection's channel slice, the flip mode on a contiguous cotangent),
+each entry point called directly with the tap layout its library takes,
+and through this checkout's wrapper, beside ``F.conv2d`` /
+``F.conv_transpose2d`` (``groups=C``); and K10 (``csrc/sscan_dir.cu``) at
+the four tiny_0230s SS2D shapes of a b128 bf16 legacy forward with a
+stride-0 u. These are device times: the queue is held behind a spin
+kernel while the timed calls are enqueued, so host time per call does not
+enter. ``--kernels`` picks groups of cases (all by default). Prints the
+card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from ceigm_unet_tpu_torch.ops import _build, ffn, grid_sample, quad_scan
+from ceigm_unet_tpu_torch.ops import (_build, dwconv, ffn, grid_sample,
+                                      quad_scan)
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -68,6 +77,11 @@ GRID_SAMPLE = [
     ("K6/K7 28->56 C32 x4 groups", 1, 512, 28, 28, 32, 56, 56, 0),
     ("K7 14x14->20x24 C87 (not on the path)", 0, 128, 14, 14, 87, 20, 24,
      0)]
+# (side, C, quad blocks at that shape per b128 forward): K13 runs once per
+# block forward, its flip mode once per block backward
+DWCONV = [(56, 64, 5), (28, 128, 6), (14, 348, 12), (7, 448, 3)]
+# (side, D, SS2D blocks per legacy forward): K10 runs once per block
+SSCAN_DIR = [(56, 96, 4), (28, 192, 4), (14, 384, 10), (7, 768, 2)]
 # spin cycles ahead of a device timing (~20 ms at the H100's clock): the
 # host enqueues the timed calls meanwhile
 SPIN_CYCLES = 40_000_000
@@ -303,12 +317,166 @@ def grid_sample_cases(libs, gpu, gen):
                           totals.items() if k == kernel), flush=True)
 
 
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _dwconv(lib, x, w, bias, flip):
+    """The C entry ``dwconv3x3`` (``dwconv3x3_flip`` when ``flip``) of
+    ``lib``; w is the fp32 taps in the layout that library takes."""
+    B, H, W, C = x.shape
+    out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
+    p = _build.ptr
+    head = [p(x), p(w)] + ([] if flip else [p(bias)]) + [p(out)]
+    fn = lib.dwconv3x3_flip if flip else lib.dwconv3x3
+    err = fn(*head, *x.stride()[:3], B, H, W, C, _build.dtype_code(x),
+             _stream())
+    if err:
+        raise RuntimeError(f"dwconv3x3 failed to launch: cudaError_t {err}")
+    return out
+
+
+def dwconv_cases(libs, taps_9c, gpu, gen):
+    """K13 in both modes at the b128 bf16 gm_tiny quad-block shapes, held
+    against dwconv3x3_ref at the bf16 tolerance (rtol 3e-2, atol 5e-2 *
+    max) on both libraries, then timed in turns beside the library call.
+    ``taps_9c[name]``: that library takes the taps as (9, C) rows (its
+    wrapper transposed torch's (C, 1, 3, 3) weight per call)."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    totals = {}
+    for flip in (False, True):
+        mode = "flip" if flip else "forward"
+        for S, C, calls in DWCONV:
+            B = 128
+            w = torch.randn((C, 1, 3, 3), generator=gen, device=dev) * 0.3
+            b = torch.randn((C,), generator=gen, device=dev) * 0.1
+            if flip:
+                x = torch.randn((B, S, S, C), generator=gen,
+                                device=dev).to(bf16)
+            else:
+                x = torch.randn((B * S * S, 2 * C), generator=gen,
+                                device=dev).to(bf16)[:, :C].view(B, S, S, C)
+            w9c = w.reshape(C, 9).t().contiguous()
+            taps = {n: w9c if taps_9c[n] else w for n in libs}
+            runs = {n: (lambda n=n: _dwconv(libs[n], x, taps[n], b, flip))
+                    for n in libs}
+            runs["this op"] = ((lambda: dwconv.dwconv3x3_flip(x, w)) if flip
+                               else (lambda: dwconv.dwconv3x3(x, w, b)))
+            plain = dwconv.dwconv3x3_ref(x, w, b, flip).float()
+            scale = plain.abs().max().item()
+            for n, fn in runs.items():
+                err = (fn().float() - plain).abs()
+                if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                    raise SystemExit(f"{n} dwconv3x3 {mode} {S}x{S} C{C}: "
+                                     f"max abs err {err.max().item():.3e}")
+            ms = {n: [] for n in runs}
+            for n in ["base", "this", "this op", "this op", "this", "base"]:
+                ms[n].append(device_time(runs[n]))
+            med = {n: statistics.median(v) for n, v in ms.items()}
+            xl, wl, bl = x.permute(0, 3, 1, 2).contiguous(), w.to(bf16), \
+                b.to(bf16)
+            lib_name = "F.conv_transpose2d" if flip else "F.conv2d"
+            med[lib_name] = device_time(
+                (lambda: F.conv_transpose2d(xl, wl, padding=1, groups=C))
+                if flip else (lambda: F.conv2d(xl, wl, bl, padding=1,
+                                               groups=C)))
+            # host in the loop: the wrapper against the library call
+            med["this op, host in the loop"] = _time(runs["this op"])
+            med[lib_name + ", host in the loop"] = _time(
+                (lambda: F.conv_transpose2d(xl, wl, padding=1, groups=C))
+                if flip else (lambda: F.conv2d(xl, wl, bl, padding=1,
+                                               groups=C)))
+            # x read once, the result written, the taps and bias
+            med["bound"] = (2 * x.numel() * 2 + 40 * C) / HBM_BPS * 1e3
+            for n, v in med.items():
+                totals[mode, n] = totals.get((mode, n), 0.0) + calls * v
+            print(f"dwconv3x3 {mode} [{S}x{S} C{C}] x{calls}/"
+                  f"{'backward' if flip else 'forward'} b128 bf16: "
+                  + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
+                  + f", this / bound {med['this'] / med['bound']:.2f}"
+                  f" | {gpu}", flush=True)
+            del x, xl, plain, runs
+    for mode in ("forward", "flip"):
+        print(f"dwconv3x3 {mode} per b128 bf16 "
+              f"{'backward' if mode == 'flip' else 'forward'}: "
+              + ", ".join(f"{n} {v:.4f} ms" for (m, n), v in totals.items()
+                          if m == mode), flush=True)
+
+
+def _sscan_dir(lib, u, dt, Bs, Cs, prm, S):
+    B, K, L, D = u.shape
+    out = torch.empty((B, K, L, D), dtype=torch.float32, device=u.device)
+    p = _build.ptr
+    err = lib.sscan_dir(p(u), p(dt), p(Bs), p(Cs), *[p(t) for t in prm],
+                        p(out), *u.stride(), *dt.stride(), *Bs.stride(),
+                        *Cs.stride(), B, K, S, S, D, 1, 2, 3, 4,
+                        _build.dtype_code(u), _stream())
+    if err:
+        raise RuntimeError(f"sscan_dir failed to launch: cudaError_t {err}")
+    return out
+
+
+def sscan_dir_cases(libs, gpu, gen):
+    """K10 at the tiny_0230s b128 bf16 SS2D shapes (u a stride-0 view over
+    the four directions), held against sscan_dir_ref at the bf16
+    tolerance on both libraries (phase 10's), then timed in turns."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    totals = {}
+    for S, D, calls in SSCAN_DIR:
+        B, K, L = 128, 4, S * S
+        rnd = lambda shape, scale=1.0: torch.randn(
+            shape, generator=gen, device=dev) * scale
+        u = rnd((B, L, D)).to(bf16)[:, None].expand(B, K, L, D)
+        dt = rnd((B, K, L, D), 0.5).to(bf16)
+        Bs, Cs = rnd((B, K, L)).to(bf16), rnd((B, K, L)).to(bf16)
+        prm = [-torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3), rnd((K, D))]
+        plain = quad_scan.sscan_dir_ref(u, dt, Bs, Cs, *prm, S, S,
+                                        (1, 2, 3, 4))
+        scale = plain.abs().max().item()
+        errs = {}
+        for n, lib in libs.items():
+            err = (_sscan_dir(lib, u, dt, Bs, Cs, prm, S) - plain).abs()
+            if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                raise SystemExit(f"{n} sscan_dir {S}x{S} D{D}: max abs err "
+                                 f"{err.max().item():.3e}")
+            errs[n] = err.max().item()
+        del plain
+        ms = {n: [] for n in libs}
+        for n in ["base", "this", "this", "base"]:
+            ms[n].append(device_time(
+                lambda: _sscan_dir(libs[n], u, dt, Bs, Cs, prm, S)))
+        med = {n: statistics.median(v) for n, v in ms.items()}
+        n_el = B * K * L * D
+        # read once: u (one activation), dt, Bs, Cs, the (K, D) constants;
+        # y written in fp32 (chip_smoke.py phase 10's count)
+        med["bound"] = (2 * (B * L * D + n_el + 2 * B * K * L) + 12 * K * D
+                        + 4 * n_el) / HBM_BPS * 1e3
+        for n, v in med.items():
+            totals[n] = totals.get(n, 0.0) + calls * v
+        print(f"sscan_dir [{S}x{S} D{D}] x{calls}/forward b128 bf16: "
+              + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
+              + f", this / bound {med['this'] / med['bound']:.2f}, max abs "
+              + ", ".join(f"err {n} {v:.3e}" for n, v in errs.items())
+              + f" (max|plain| {scale:.3e}) | {gpu}", flush=True)
+        del u, dt, Bs, Cs
+    print("sscan_dir per b128 bf16 legacy forward: "
+          + ", ".join(f"{n} {v:.4f} ms" for n, v in totals.items()),
+          flush=True)
+
+
+KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path,
                     help="the other checkout's ceigm_unet_tpu_torch/csrc")
     ap.add_argument("--batch", type=int, default=48,
                     help="batch of the scan2d cases")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS), help="groups of cases to run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
@@ -323,10 +491,20 @@ def main() -> int:
         libs = {"base": _build.load(_build.build(base, Path(tmp))),
                 "this": _build.library()}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    scan2d_cases(libs, args.batch, gpu, gen)
-    gemm_cases(libs["base"], libs["this"], (base / "cffn_gemm.cu").exists(),
-               gpu, gen)
-    grid_sample_cases(libs, gpu, gen)
+    if "scan2d" in args.kernels:
+        scan2d_cases(libs, args.batch, gpu, gen)
+    if "cffn_gemm" in args.kernels:
+        gemm_cases(libs["base"], libs["this"],
+                   (base / "cffn_gemm.cu").exists(), gpu, gen)
+    if "grid_sample" in args.kernels:
+        grid_sample_cases(libs, gpu, gen)
+    if "dwconv" in args.kernels:
+        dwconv_cases(libs, {
+            n: "w is (9, C)" in (csrc / "dwconv3.cu").read_text()
+            for n, csrc in (("base", base), ("this", _build.CSRC))},
+            gpu, gen)
+    if "sscan_dir" in args.kernels:
+        sscan_dir_cases(libs, gpu, gen)
     return 0
 
 

@@ -136,7 +136,9 @@ def library() -> ctypes.CDLL:
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current stream; raise on a
     launch error, count the launch otherwise."""
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle: torch.cuda.current_stream() builds a Stream object
+    # on every call, which costs more host time than the launch itself
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"kernel {name} failed to launch: cudaError_t "
@@ -160,11 +162,11 @@ def dtype_code(t: torch.Tensor) -> int:
 def check_cuda(*tensors: torch.Tensor) -> None:
     """All tensors on the current CUDA device (the kernels launch on its
     current stream)."""
-    dev = torch.device("cuda", torch.cuda.current_device())
+    dev = torch.cuda.current_device()
     for t in tensors:
-        if t.device != dev:
+        if t.get_device() != dev:
             raise ValueError(f"kernel operand on {t.device}, the current "
-                             f"device is {dev}")
+                             f"device is cuda:{dev}")
 
 
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:

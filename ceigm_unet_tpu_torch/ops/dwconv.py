@@ -54,8 +54,9 @@ def _launch(x, weight, bias, flip: bool):
     B, H, W, C = x.shape
     if x.stride(3) != 1:
         x = x.contiguous()
-    wf = weight.to(device=x.device, dtype=torch.float32).reshape(C, 9) \
-        .t().contiguous()                                   # (9, C)
+    # torch's (C, 1, 3, 3) taps as stored: the kernel reads them as (C, 9),
+    # so an fp32 weight is passed with no copy
+    wf = weight.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty((B, H, W, C), dtype=x.dtype, device=x.device)
     _build.check_cuda(x, wf)
     p = _build.ptr
@@ -120,7 +121,12 @@ def dwconv3x3(x: torch.Tensor, weight: torch.Tensor,
     _check("dwconv3x3", x, weight)
     if bias.shape != (x.shape[-1],):
         raise ValueError(f"dwconv3x3: bias {tuple(bias.shape)}")
-    return DwConv3x3.apply(x, weight, bias)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return DwConv3x3.apply(x, weight, bias)
+    # nothing to differentiate: the kernel alone, without the autograd
+    # op's host time (at 7x7 the host's time per call exceeds the kernel's)
+    return _dwconv(x, weight, bias, flip=False)
 
 
 def dwconv3x3_flip(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

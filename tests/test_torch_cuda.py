@@ -380,6 +380,28 @@ def test_sscan_dir_kernel(dev, shape, dtype):
            sscan_dir_ref(u, dt, *BC, *prm, H, W, (1, 2, 3, 4)), dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# L shorter than a 16-pixel chunk (3x4), L not a multiple of it (5x9, 7x7),
+# a column walk with H > W (50x3); D 40 (a ragged channel tile) and 768;
+# 37 x 3 (b, k) chains of three tiles, whose last wave of blocks is partial
+@pytest.mark.parametrize("shape,dirs", [
+    ((1, 3, 4, 40), (1, 2, 3, 4)), ((2, 5, 9, 40), (4, 3, 2, 1)),
+    ((2, 7, 7, 768), (1, 2, 3, 4)), ((1, 50, 3, 33), (2, 4)),
+    ((37, 14, 14, 96), (2, 4, 1))])
+def test_sscan_dir_kernel_edges(dev, shape, dirs, dtype):
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D + H)
+    K, L = len(dirs), H * W
+    u = _rand(g, (B, L, D), dev, 1.0, DT[dtype])[:, None].expand(B, K, L, D)
+    dt = _rand(g, (B, K, L, D), dev, 0.5, DT[dtype])
+    BC = [_rand(g, (B, K, L), dev, 1.0, DT[dtype]) for _ in range(2)]
+    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
+           _rand(g, (K, D), dev)]
+    got = sscan_dir(u, dt, *BC, *prm, H, W, dirs)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _close(got, sscan_dir_ref(u, dt, *BC, *prm, H, W, dirs), dtype)
+
+
 # rows x L: the b8 N16 56x56 shape's L, a chunk's ragged end, L = 1
 @pytest.mark.parametrize("ML", [(13, 3136), (7, 300), (5, 1), (1, 4096)])
 def test_scan_rows_kernel(dev, ML):
@@ -592,6 +614,35 @@ def test_dwconv3x3_kernel(dev, shape, dtype):
     _close(got, dwconv3x3_ref(x, w, b), dtype)
     gy = _rand(g, (B, H, W, C), dev, 1.0, DT[dtype])
     _close(dwconv3x3_flip(gy, w), dwconv3x3_ref(gy, w, flip=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# layout of x: the channel slice of a (B*H*W, 2C) tensor (16-byte pixel
+# pitch for C 348 in bf16), a contiguous tensor (8-byte pitch for C 348 in
+# bf16), or a contiguous one starting one element into its storage (no
+# vector access)
+@pytest.mark.parametrize("layout", ["slice", "contiguous", "offset"])
+# C not a multiple of the 4-channel item (35, 87); H or W below a strip of
+# 8 rows (1, 2, 3) or not a multiple of it (10, 17)
+@pytest.mark.parametrize("shape", [(2, 1, 5, 35), (2, 2, 3, 87),
+                                   (1, 3, 1, 348), (2, 17, 10, 348),
+                                   (1, 9, 2, 64), (3, 10, 7, 12)])
+def test_dwconv3x3_kernel_edges(dev, shape, layout, dtype):
+    B, H, W, C = shape
+    g = torch.Generator().manual_seed(C + H)
+    n = B * H * W * C
+    if layout == "slice":
+        x = _rand(g, (B * H * W, 2 * C), dev, 1.0, DT[dtype])[:, :C].view(
+            B, H, W, C)
+    else:
+        skip = int(layout == "offset")
+        x = _rand(g, (n + skip,), dev, 1.0, DT[dtype])[skip:].view(
+            B, H, W, C)
+    w, b = _rand(g, (C, 1, 3, 3), dev, 0.3), _rand(g, (C,), dev, 0.1)
+    got = dwconv3x3(x, w, b)
+    assert got.dtype == DT[dtype] and got.is_contiguous()
+    _close(got, dwconv3x3_ref(x, w, b), dtype)
+    _close(dwconv3x3_flip(x, w), dwconv3x3_ref(x, w, flip=True), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -33,7 +33,8 @@ from ceigm_unet_tpu_torch.eval.volume import predict_volume
 from ceigm_unet_tpu_torch.models import build_legacy_model, vmamba
 from ceigm_unet_tpu_torch.models.ss2d import SS2D
 from ceigm_unet_tpu_torch.ops import cross_scan
-from ceigm_unet_tpu_torch.ops.quad_scan import sscan_dir, sscan_dir_ref
+from ceigm_unet_tpu_torch.ops.quad_scan import (scan_order, sscan_dir,
+                                                sscan_dir_ref)
 from ceigm_unet_tpu_torch.ops.selective_scan import (scan_rows, scan_rows_ref,
                                                      selective_scan,
                                                      selective_scan_n1)
@@ -123,6 +124,78 @@ def test_sscan_dir_strides_and_direction_order():
                             H, W, (d,))
         np.testing.assert_allclose(got[:, k].numpy(), one[:, 0].numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _sscan_dir_chunked(u, dt, Bs, Cs, A, bias, Dv, H, W, directions, chunk):
+    """K10's recurrence in the chunked form its kernel runs, in plain fp32
+    PyTorch: each direction's walk cut into chunks of ``chunk`` steps (the
+    last one short where ``chunk`` does not divide H*W); per chunk, the
+    running sum s of d = softplus(dt + bias), so the chunk's decay so far is
+    P = exp(A*s), and the local state h_loc from h = 0; then each chunk's
+    carry-in folded over the chunks before it (h_in = P_end*h_in +
+    h_loc_end); y = C*(h_loc + P*h_in) + D*u, back in pixel order."""
+    B, K, L, D = u.shape
+    order = torch.stack([scan_order(H, W, d) for d in directions])
+    idx4 = order.view(1, K, L, 1).expand(B, K, L, D)
+    idx3 = order.view(1, K, L).expand(B, K, L)
+    prm = lambda t: t.float().reshape(1, K, 1, D)
+    x = torch.gather(dt.float(), 2, idx4) + prm(bias)
+    d = x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+    uf = torch.gather(u.float(), 2, idx4)
+    Bf = torch.gather(Bs.float(), 2, idx3).unsqueeze(-1)
+    Cf = torch.gather(Cs.float(), 2, idx3).unsqueeze(-1)
+    n = -(-L // chunk)
+    # steps past L: d = 0 (decay 1) and no drive
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, n * chunk - L))
+    d, drive = pad(d), pad(d * uf * Bf)
+    d = d.reshape(B, K, n, chunk, D)
+    drive = drive.reshape(B, K, n, chunk, D)
+    Af = A.float().reshape(1, K, 1, 1, D)
+    P = torch.exp(Af * torch.cumsum(d, dim=3))
+    a = torch.exp(Af * d)
+    h_loc = torch.zeros_like(d)
+    h = torch.zeros_like(d[:, :, :, 0])
+    for j in range(chunk):
+        h = a[:, :, :, j] * h + drive[:, :, :, j]
+        h_loc[:, :, :, j] = h
+    h_in = torch.zeros_like(h)
+    carry = torch.zeros_like(h[:, :, 0])
+    for i in range(n):
+        h_in[:, :, i] = carry
+        carry = P[:, :, i, -1] * carry + h_loc[:, :, i, -1]
+    hs = (h_loc + P * h_in.unsqueeze(3)).reshape(B, K, n * chunk, D)[:, :, :L]
+    y = Cf * hs + prm(Dv) * uf
+    return torch.empty_like(y).scatter_(2, idx4, y)
+
+
+@pytest.mark.parametrize("H,W", [(5, 9), (7, 7)])
+def test_sscan_dir_chunked_recurrence_matches_ref_and_jax(H, W):
+    """The chunked recurrence of csrc/sscan_dir.cu (chunk sums of d, local
+    end states, the carry fold) gives sscan_dir_ref's y and the JAX
+    sscan_dir's (Pallas in interpret mode), in all four directions, for
+    chunks that divide H*W (45 by 5, 49 by 7) and that do not (16, and 7 or
+    5), fp32."""
+    B, D = 2, 6
+    dirs = (1, 2, 3, 4)
+    t = {k: _t(v) for k, v in _dir_inputs(B, H, W, D, 4, seed=H).items()}
+    u = t["u"][:, None].expand(B, 4, H * W, D)
+    prm = [t[n] for n in ("A", "bias", "Dv")]
+    ref = sscan_dir_ref(u, t["dt"], t["Bs"], t["Cs"], *prm, H, W, dirs)
+    bc = lambda x, k: jnp.asarray(x[:, k, :, None].expand(B, H * W, D)
+                                  .numpy())
+    want = [_f32(jsscan_dir(jnp.asarray(t["u"].numpy()),
+                            jnp.asarray(t["dt"][:, k].numpy()),
+                            bc(t["Bs"], k), bc(t["Cs"], k),
+                            *[jnp.asarray(q[k].numpy()) for q in prm], H, W,
+                            d)) for k, d in enumerate(dirs)]
+    for chunk in (5, 7, 16):
+        got = _sscan_dir_chunked(u, t["dt"], t["Bs"], t["Cs"], *prm, H, W,
+                                 dirs, chunk)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        for k in range(4):
+            np.testing.assert_allclose(got[:, k].numpy(), want[k],
+                                       **TOL["float32"])
 
 
 # --- K11 and K12: the generic selective scan ----------------------------------
