@@ -67,8 +67,6 @@ namespace {
 constexpr int kTile = 32;      // channels per warp, one per lane
 constexpr int kMaxWarps = 4;   // chunks per round (warps per block)
 constexpr int kSteps = 16;     // pixels per chunk, loaded at once per lane
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct DirArgs {
   const void* u; const void* dt; const void* Bs; const void* Cs;
@@ -76,49 +74,6 @@ struct DirArgs {
   long long su[4], sdt[4], sbs[3], scs[3];
   int K, H, W, D, tiles;
   int dirs[4];
-};
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A direction's walk over the H*W pixels: the pixel at step t, and the
-// pixel after p step by step (p += inc; where that leaves [0, L), a column
-// walk passing the end of a column, p += wrap).
-struct Walk {
-  int H, W, L, inc, wrap;
-  bool rev, col;
-  float invH;
-  __device__ __forceinline__ Walk(int dir, int H_, int W_)
-      : H(H_), W(W_), L(H_ * W_) {
-    rev = dir == 3 || dir == 4;
-    col = dir == 2 || dir == 4;
-    inc = dir == 1 ? 1 : dir == 3 ? -1 : dir == 2 ? W : -W;
-    wrap = dir == 2 ? 1 - L : dir == 4 ? L - 1 : 0;
-    invH = 1.f / H;
-  }
-  __device__ __forceinline__ int at(int t) const {
-    if (rev) t = L - 1 - t;
-    if (!col) return t;
-    // t / H through the fp32 reciprocal, corrected to the exact quotient
-    // (t < 2^24)
-    int q = __float2int_rz((float)t * invH);
-    const int r = t - q * H;
-    q += r < 0 ? -1 : (r >= H ? 1 : 0);
-    return (t - q * H) * W + q;
-  }
-  __device__ __forceinline__ int next(int p) const {
-    p += inc;
-    return (unsigned)p >= (unsigned)L ? p + wrap : p;
-  }
 };
 
 template <typename T>

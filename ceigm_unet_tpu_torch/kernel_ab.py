@@ -29,10 +29,12 @@ each entry point called directly with the tap layout its library takes,
 and through this checkout's wrapper, beside ``F.conv2d`` /
 ``F.conv_transpose2d`` (``groups=C``); and K10 (``csrc/sscan_dir.cu``) at
 the four tiny_0230s SS2D shapes of a b128 bf16 legacy forward with a
-stride-0 u. These are device times: the queue is held behind a spin
-kernel while the timed calls are enqueued, so host time per call does not
-enter. ``--kernels`` picks groups of cases (all by default). Prints the
-card's name and power limit first.
+stride-0 u; and K1 / K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln`` and
+``quad_scan_ln_q8``) at the four gm_tiny quad-block shapes of a b128 bf16
+forward in the model's strided layout. These are device times: the queue
+is held behind a spin kernel while the timed calls are enqueued, so host
+time per call does not enter. ``--kernels`` picks groups of cases (all
+by default). Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -466,7 +468,105 @@ def sscan_dir_cases(libs, gpu, gen):
           flush=True)
 
 
-KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir")
+def _quad_scan_ln(lib, u, dt, Bs, Cs, prm, S, scales=(), dirs=(1, 2, 3, 4)):
+    """The C entry ``quad_scan_ln`` of ``lib``, or ``quad_scan_ln_q8`` with
+    the int8 dequantization ``scales`` (su, sdt)."""
+    B, K, L, D = u.shape
+    out = torch.empty((B, L, K * D), dtype=torch.bfloat16, device=u.device)
+    p = _build.ptr
+    fn = lib.quad_scan_ln_q8 if scales else lib.quad_scan_ln
+    err = fn(p(u), p(dt), p(Bs), p(Cs), *[p(t) for t in (*prm, *scales)],
+             p(out), *u.stride(), *dt.stride(), *Bs.stride(), *Cs.stride(),
+             B, K, S, S, D, *dirs, _build.dtype_code(Bs), _stream())
+    if err:
+        raise RuntimeError(f"quad_scan_ln failed to launch: cudaError_t "
+                           f"{err}")
+    return out
+
+
+def quad_scan_ln_cases(libs, gpu, gen):
+    """K1 (``quad_scan_ln``) and K14 (``quad_scan_ln_q8``) at the four
+    gm_tiny quad-block shapes of a b128 bf16 forward, in the model's
+    layout: u and dt (B, L, K, D) GEMM outputs viewed as (B, K, L, D) (int8
+    for K14), Bs and Cs the x_dbl (B, L, K, R + 2) slices viewed as (B, K,
+    L). Each is held against its plain version at the bf16 tolerance on
+    both libraries, then timed in turns as device time beside the bound
+    (chip_smoke.py phase 3's and phase 14's byte counts). For K1, this
+    checkout's kernel is also timed with every group walking rows (each
+    128-byte pixel row of u, dt and out then serves its four groups at one
+    time) and on inputs that hit in cache (u, dt, Bs and Cs read through
+    stride-0 views of one pixel): what the model's layout and the loads
+    cost."""
+    from ceigm_unet_tpu_torch.models.ss2d import q8
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rnd = lambda shape, scale=1.0: torch.randn(
+        shape, generator=gen, device=dev) * scale
+    totals = {}
+    for kernel in ("K1", "K14"):
+        for tag, calls, S, D in GM_TINY:
+            B, K, L, R = 128, 4, S * S, -(-D // 16)
+            if kernel == "K1":
+                u, dt = [rnd((B, L, K, D), s).to(bf16).permute(0, 2, 1, 3)
+                         for s in (1.0, 0.5)]
+                scales = ()
+            else:
+                (u, su), (dt, sdt) = [q8(rnd((B, L, K, D), s))
+                                      for s in (1.0, 0.5)]
+                u, dt = u.permute(0, 2, 1, 3), dt.permute(0, 2, 1, 3)
+                scales = (su, sdt)
+            x_dbl = rnd((B, L, K, R + 2)).to(bf16)
+            Bs, Cs = (x_dbl[..., R].permute(0, 2, 1),
+                      x_dbl[..., R + 1].permute(0, 2, 1))
+            prm = [-torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3),
+                   rnd((K, D)), 1 + rnd((K, D), 0.1), rnd((K, D), 0.1)]
+            args = [u, dt, *scales, Bs, Cs, *prm, S, S, (1, 2, 3, 4)]
+            plain = (quad_scan.quad_scan_ln_cat_q8_ref(*args) if scales
+                     else quad_scan.quad_scan_ln_cat_ref(*args)).float()
+            scale = plain.abs().max().item()
+            errs = {}
+            for n, lib in libs.items():
+                err = (_quad_scan_ln(lib, u, dt, Bs, Cs, prm, S, scales)
+                       .float() - plain).abs()
+                if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                    raise SystemExit(f"{n} {kernel} {tag}: max abs err "
+                                     f"{err.max().item():.3e}")
+                errs[n] = err.max().item()
+            del plain
+            ms = {n: [] for n in libs}
+            for n in ["base", "this", "this", "base"]:
+                ms[n].append(device_time(lambda: _quad_scan_ln(
+                    libs[n], u, dt, Bs, Cs, prm, S, scales)))
+            med = {n: statistics.median(v) for n, v in ms.items()}
+            if not scales:
+                med["this, rows only"] = device_time(lambda: _quad_scan_ln(
+                    libs["this"], u, dt, Bs, Cs, prm, S, dirs=(1, 1, 1, 1)))
+                one = [t[:1, :1, :1].expand(t.shape) for t in (u, dt, Bs, Cs)]
+                med["this, cached inputs"] = device_time(
+                    lambda: _quad_scan_ln(libs["this"], *one, prm, S))
+            n_el = B * K * L * D
+            # u, dt read and the bf16 output written; Bs, Cs; the (K, D)
+            # constants
+            med["bound"] = ((4 * n_el if scales else 6 * n_el)
+                            + 4 * B * K * L + (28 if scales else 20) * K * D
+                            ) / HBM_BPS * 1e3
+            for n, v in med.items():
+                totals[kernel, n] = totals.get((kernel, n), 0.0) + calls * v
+            print(f"quad_scan_ln {kernel} [{tag}] x{calls}/forward b128 bf16:"
+                  " " + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
+                  + f", this / bound {med['this'] / med['bound']:.2f}, max "
+                  "abs " + ", ".join(f"err {n} {v:.3e}" for n, v in
+                                     errs.items())
+                  + f" (max|plain| {scale:.3e}) | {gpu}", flush=True)
+            del u, dt, Bs, Cs, x_dbl
+    for kernel in ("K1", "K14"):
+        print(f"quad_scan_ln {kernel} per b128 bf16 forward: "
+              + ", ".join(f"{n} {v:.4f} ms" for (k, n), v in totals.items()
+                          if k == kernel), flush=True)
+
+
+KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir",
+           "quad_scan_ln")
 
 
 def main() -> int:
@@ -505,6 +605,8 @@ def main() -> int:
             gpu, gen)
     if "sscan_dir" in args.kernels:
         sscan_dir_cases(libs, gpu, gen)
+    if "quad_scan_ln" in args.kernels:
+        quad_scan_ln_cases(libs, gpu, gen)
     return 0
 
 

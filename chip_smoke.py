@@ -9,19 +9,21 @@ exits non-zero without its last line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compiles the hand-written kernels (``ceigm_unet_tpu_torch/csrc``);
 3. kernels: each kernel against its plain PyTorch version at every shape
-   the 224x224 forward gives it, at batch 2 in fp32 (TF32 off; rtol 1e-4,
-   atol 1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|),
-   and at batch 128 in bf16 (same bf16 tolerance; the batch of phase 6,
-   large enough that every grid-stride loop repeats), where kernel and
-   plain version are also timed with CUDA events; ``cffn_gemm`` is held
-   tighter: its fp32 output (fc1) at the fp32 tolerance and its bf16 output
-   (fc2) at rtol 1e-2, atol 1e-2 * max|plain| (two bf16 ulps); K4
-   (``dysample_grid_sample``) also on a grid far outside [-1, 1] (the
-   border clamp on all four edges) at C 348, where channel vectors
-   straddle two groups; each kernel and the library call beside it are
-   also timed as the device's work alone (``device_ms``,
-   ``library_device_ms``: the calls queue behind a spin kernel, so the
-   host's time per call does not enter);
+   the 224x224 forward gives it (in the layout the model passes: K1's u and dt
+   as strided (B, L, K, D) GEMM outputs, Bs and Cs as x_dbl slices; K1 also on
+   contiguous operands and on a long-memory input whose state carries across
+   every chunk of a 56x56 walk), at batch 2 in fp32 (TF32 off; rtol 1e-4, atol
+   1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|), and at
+   batch 128 in bf16 (same bf16 tolerance; the batch of phase 6, large enough
+   that every grid-stride loop repeats), where kernel and plain version are
+   also timed with CUDA events; ``cffn_gemm`` is held tighter: its fp32 output
+   (fc1) at the fp32 tolerance and its bf16 output (fc2) at rtol 1e-2, atol
+   1e-2 * max|plain| (two bf16 ulps); K4 (``dysample_grid_sample``) also on a
+   grid far outside [-1, 1] (the border clamp on all four edges) at C 348,
+   where channel vectors straddle two groups; each kernel and the library call
+   beside it are also timed as the device's work alone (``device_ms``,
+   ``library_device_ms``: the calls queue behind a spin kernel, so the host's
+   time per call does not enter);
 4. model: MSVM-UNet gm_tiny (9 classes, seeded random weights) at 224x224,
    batch 2, fp32 on the card against the same model on the CPU (rtol 1e-3,
    atol 1e-3 * max|CPU logits|), and the kernel launches of one forward;
@@ -77,7 +79,8 @@ exits non-zero without its last line:
    ``grid_sample_bilinear``; K6/K7) at DySample's three per-group 224x224
    shapes, one non-2x size, a grid far outside [-1, 1] and a C 348 image,
    K13 (``csrc/dwconv3.cu``) forward and flip
-   mode and K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln_q8``) at every
+   mode and K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln_q8``, in the
+   model's layout, and once on a long-memory input) at every
    gm_tiny quad-block shape, each at b2 fp32, b2 bf16 and b128 bf16
    against its plain version (phase 3's tolerances; K14's bf16 output at
    the bf16 one), timed beside it, the library call and the bound; then
@@ -221,6 +224,17 @@ class Case:
                 else "operations")
 
 
+def quad_params(rnd, dev, K, D, long_memory=False):
+    """A, dt bias, D, LN scale, LN bias of the quad scan. Long memory: A =
+    -exp(-8) and a dt bias near -2 keep each step's decay exp(d*A) within
+    2e-4 of 1, so the state carries over every chunk of a 56x56 walk and a
+    wrong carry-in shows far above the tolerance."""
+    A = (torch.full((K, D), -np.exp(-8.0), device=dev) if long_memory
+         else -torch.exp(rnd((K, D), 0.5)))
+    return [A, rnd((K, D), 0.3) - (2.0 if long_memory else 0.0), rnd((K, D)),
+            1 + rnd((K, D), 0.1), rnd((K, D), 0.1)]
+
+
 def kernel_cases(dev):
     """name -> (route, source, replaces, [(shape tag, calls per forward,
     make(batch, dtype) -> Case)])."""
@@ -234,13 +248,23 @@ def kernel_cases(dev):
     def size(dt):
         return torch.tensor([], dtype=dt).element_size()
 
-    def quad(H, W, D):
+    def quad(H, W, D, model_layout=True, long_memory=False):
+        # model_layout: u and dt (B, L, K, D) GEMM outputs and Bs, Cs the
+        # x_dbl (B, L, K, R + 2) slices, viewed as (B, K, L[, D]), as
+        # models/ss2d.py passes them; else contiguous (B, K, L[, D])
         def make(B, dt):
             K, L = 4, H * W
-            args = [rnd((B, K, L, D), 1.0, dt), rnd((B, K, L, D), 0.5, dt),
-                    rnd((B, K, L), 1.0, dt), rnd((B, K, L), 1.0, dt),
-                    -torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3),
-                    rnd((K, D)), 1 + rnd((K, D), 0.1), rnd((K, D), 0.1),
+            if model_layout:
+                R = -(-D // 16)
+                u, dtv = [rnd((B, L, K, D), s, dt).permute(0, 2, 1, 3)
+                          for s in (1.0, 0.5)]
+                x_dbl = rnd((B, L, K, R + 2), 1.0, dt)
+                BC = [x_dbl[..., R + i].permute(0, 2, 1) for i in (0, 1)]
+            else:
+                u, dtv = rnd((B, K, L, D), 1.0, dt), rnd((B, K, L, D), 0.5,
+                                                         dt)
+                BC = [rnd((B, K, L), 1.0, dt) for _ in (0, 1)]
+            args = [u, dtv, *BC, *quad_params(rnd, dev, K, D, long_memory),
                     H, W, (1, 2, 3, 4)]
             n = B * K * L * D
             # ~22 elementwise operations per element: softplus, decay,
@@ -355,7 +379,12 @@ def kernel_cases(dev):
                              ("56x56 D16", 5, quad(56, 56, 16)),
                              ("28x28 D32", 6, quad(28, 28, 32)),
                              ("14x14 D87", 12, quad(14, 14, 87)),
-                             ("7x7 D112", 3, quad(7, 7, 112))]),
+                             ("7x7 D112", 3, quad(7, 7, 112)),
+                             ("56x56 D16, contiguous (B, K, L, D) operands"
+                              " (not on the path)", 0,
+                              quad(56, 56, 16, model_layout=False)),
+                             ("56x56 D16, long memory (not on the path)", 0,
+                              quad(56, 56, 16, long_memory=True))]),
         "cffn_gemm": ("cuda", src + "cffn_gemm.cu",
                       "ceigm_unet_tpu/ops/ffn_pallas.py:114",
                       [(f"fc1 {s}x{s} {c}->{h}", n, gemm(s * s, c, h, False))
@@ -1242,16 +1271,18 @@ def route_kernel_cases(dev):
                         + 40 * C, 18 * n, "fp32")
         return make
 
-    def quad8(S, D):
+    def quad8(S, D, long_memory=False):
+        # the model's layout (phase 3's quad): u and dt (B, L, K, D), Bs and
+        # Cs x_dbl slices
         def make(B, dt):
-            K, L = 4, S * S
+            K, L, R = 4, S * S, -(-D // 16)
             (uq, su), (dq, sdt) = [q8(rnd((B, L, K, D), s)) for s in (1.0,
                                                                     0.5)]
+            x_dbl = rnd((B, L, K, R + 2), 1.0, dt)
             args = [uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3), su, sdt,
-                    rnd((B, K, L), 1.0, dt), rnd((B, K, L), 1.0, dt),
-                    -torch.exp(rnd((K, D), 0.5)), rnd((K, D), 0.3),
-                    rnd((K, D)), 1 + rnd((K, D), 0.1), rnd((K, D), 0.1),
-                    S, S, (1, 2, 3, 4)]
+                    *[x_dbl[..., R + i].permute(0, 2, 1) for i in (0, 1)],
+                    *quad_params(rnd, dev, K, D, long_memory), S, S,
+                    (1, 2, 3, 4)]
             n = B * K * L * D
             size = torch.tensor([], dtype=dt).element_size()
             # int8 u and dt read, bf16 out written, Bs and Cs; K1's ~22
@@ -1283,7 +1314,9 @@ def route_kernel_cases(dev):
         "quad_scan_ln_q8": ("cuda", src + "quad_scan_ln.cu",
                             "ceigm_unet_tpu/ops/quad_scan.py:542 quant=True",
                             [(f"{S}x{S} D{C // 4}", n, quad8(S, C // 4))
-                             for S, C, n in QUAD_SHAPES]),
+                             for S, C, n in QUAD_SHAPES]
+                            + [("56x56 D16, long memory (not on the path)",
+                                0, quad8(56, 16, long_memory=True))]),
     }
     backward = {"dwconv3x3_flip": (
         "cuda", src + "dwconv3.cu",

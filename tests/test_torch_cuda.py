@@ -10,6 +10,7 @@ atol 5e-2 * max|plain| (tests/test_kernel_matrix.py's bf16 row).
 Gradients on the card against the CPU: rtol 2e-3 and atol 1e-8 + 2e-3 *
 max|CPU grad| per tensor (tests/test_torch_grad_parity.py's comparison).
 """
+import math
 import re
 
 import pytest
@@ -73,19 +74,36 @@ def _rand(gen, shape, dev, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
 
 
+def _quad_prm(g, K, D, dev, long_memory=False):
+    """A, dt bias, D, LN scale, LN bias of the quad scan. Long memory: A =
+    -exp(-8) and a dt bias near -2 keep each step's decay exp(d*A) within
+    2e-4 of 1, so the state carries across every chunk of the chain and a
+    wrong carry-in shows far above the tolerance."""
+    A = (torch.full((K, D), -math.exp(-8.0), device=dev) if long_memory
+         else -torch.exp(_rand(g, (K, D), dev, 0.5)))
+    return [A, _rand(g, (K, D), dev, .3) - (2.0 if long_memory else 0.0),
+            _rand(g, (K, D), dev), 1 + _rand(g, (K, D), dev, .1),
+            _rand(g, (K, D), dev, .1)]
+
+
+# long-memory cases at D 8-128, L not a multiple of a chunk (7x9) and 56x56
+LONG_MEMORY = [pytest.param((*s, "long memory"), id="long-memory-{}x{}x{}x{}"
+                            .format(*s))
+               for s in [(2, 7, 9, 8), (1, 56, 56, 16), (2, 7, 9, 40),
+                         (2, 14, 14, 87), (2, 7, 9, 128)]]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 56, 56, 16), (2, 14, 14, 87),
                                    (3, 7, 7, 112), (1, 5, 9, 8),
-                                   (2, 7, 7, 128)])
+                                   (2, 7, 7, 128), *LONG_MEMORY])
 def test_quad_scan_ln_kernel(dev, shape, dtype):
-    B, H, W, D = shape
+    B, H, W, D, *long_memory = shape
     g = torch.Generator().manual_seed(D)
     L, K = H * W, 4
     act = [_rand(g, (B, K, L, D), dev, s, DT[dtype]) for s in (1.0, 0.5)]
     act += [_rand(g, (B, K, L), dev, 1.0, DT[dtype]) for _ in range(2)]
-    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
-           _rand(g, (K, D), dev), 1 + _rand(g, (K, D), dev, .1),
-           _rand(g, (K, D), dev, .1)]
+    prm = _quad_prm(g, K, D, dev, bool(long_memory))
     dirs = (1, 2, 3, 4)
     _close(quad_scan_ln_cat(*act, *prm, H, W, dirs),
            quad_scan_ln_cat_ref(*act, *prm, H, W, dirs), dtype)
@@ -94,6 +112,32 @@ def test_quad_scan_ln_kernel(dev, shape, dtype):
             for a in act[:2]]
     _close(quad_scan_ln_cat(*blkd, *act[2:], *prm, H, W, (4, 3, 2, 1)),
            quad_scan_ln_cat_ref(*act, *prm, H, W, (4, 3, 2, 1)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# L below a chunk (3x4) and 1 (1x1), L not a multiple of one (5x9, 9x7),
+# a column walk with H > W (50x3), K < 4, D at every chunk shape (16 lanes;
+# 32 lanes with 1, 2, 3 or 4 channels each: D 5, 33, 40, 64, 96, 128);
+# 37 x 3 (b, k) chains, whose last wave of blocks is partial
+@pytest.mark.parametrize("shape,dirs", [
+    ((1, 3, 4, 16), (1, 2, 3, 4)), ((2, 1, 1, 5), (1, 2, 3, 4)),
+    ((2, 5, 9, 40), (4, 3, 2, 1)), ((1, 50, 3, 33), (2, 4)),
+    ((2, 9, 7, 64), (3, 1, 4, 2)), ((37, 14, 14, 96), (2, 4, 1)),
+    ((1, 16, 17, 128), (1, 2, 3, 4))])
+def test_quad_scan_ln_kernel_edges(dev, shape, dirs, dtype):
+    """Model-layout operands: u and dt (B, L, K, D) GEMM outputs and Bs, Cs
+    slices of an x_dbl (B, L, K, R + 2), viewed as (B, K, L[, D])."""
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D + H)
+    K, L, R = len(dirs), H * W, -(-D // 16)
+    u, dt = [_rand(g, (B, L, K, D), dev, s, DT[dtype]).permute(0, 2, 1, 3)
+             for s in (1.0, 0.5)]
+    x_dbl = _rand(g, (B, L, K, R + 2), dev, 1.0, DT[dtype])
+    BC = [x_dbl[..., R + i].permute(0, 2, 1) for i in (0, 1)]
+    prm = _quad_prm(g, K, D, dev, long_memory=D % 2 == 0)
+    got = quad_scan_ln_cat(u, dt, *BC, *prm, H, W, dirs)
+    assert got.dtype == DT[dtype] and got.shape == (B, L, K * D)
+    _close(got, quad_scan_ln_cat_ref(u, dt, *BC, *prm, H, W, dirs), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -647,19 +691,18 @@ def test_dwconv3x3_kernel_edges(dev, shape, layout, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 56, 56, 16), (2, 14, 14, 87),
-                                   (3, 7, 7, 112), (1, 5, 9, 8)])
+                                   (3, 7, 7, 112), (1, 5, 9, 8),
+                                   *LONG_MEMORY])
 def test_quad_scan_ln_q8_kernel(dev, shape, dtype):
     """The int8 scan (Bs/Cs in ``dtype``), bf16 out, at the bf16
     tolerance."""
-    B, H, W, D = shape
+    B, H, W, D, *long_memory = shape
     g = torch.Generator().manual_seed(D)
     K, L = 4, H * W
     (uq, su), (dq, sdt) = [q8(_rand(g, (B, L, K, D), dev, s))
                            for s in (1.0, 0.5)]
     BC = [_rand(g, (B, K, L), dev, 1.0, DT[dtype]) for _ in range(2)]
-    prm = [-torch.exp(_rand(g, (K, D), dev, 0.5)), _rand(g, (K, D), dev, .3),
-           _rand(g, (K, D), dev), 1 + _rand(g, (K, D), dev, .1),
-           _rand(g, (K, D), dev, .1)]
+    prm = _quad_prm(g, K, D, dev, bool(long_memory))
     for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
         args = [uq.permute(0, 2, 1, 3), dq.permute(0, 2, 1, 3), su, sdt, *BC,
                 *prm, H, W, dirs]

@@ -59,10 +59,12 @@ def _both(a, dtype="float32"):
 
 # --- quad scan + group LN ----------------------------------------------------
 
-def _quad_inputs(B, H, W, D, seed):
+def _quad_inputs(B, H, W, D, seed, long_memory=False):
+    """Long memory: A = -exp(-8) and a dt bias near -2 keep each step's
+    decay within 2e-4 of 1, so the state carries over the whole walk."""
     rng = np.random.default_rng(seed)
     K, L = 4, H * W
-    return dict(
+    a = dict(
         u=rng.standard_normal((B, K, L, D)),
         dt=rng.standard_normal((B, K, L, D)) * 0.5,
         Bs=rng.standard_normal((B, K, L)),
@@ -72,13 +74,19 @@ def _quad_inputs(B, H, W, D, seed):
         Dv=rng.standard_normal((K, D)),
         lns=1.0 + rng.standard_normal((K, D)) * 0.1,
         lnb=rng.standard_normal((K, D)) * 0.1)
+    if long_memory:
+        a["A"] = np.full((K, D), -np.exp(-8.0))
+        a["bias"] -= 2.0
+    return a
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 6, 10, 8), (2, 7, 7, 12)])
+@pytest.mark.parametrize("shape", [
+    (2, 6, 10, 8), (2, 7, 7, 12),
+    pytest.param((1, 16, 16, 8, "long memory"), id="long-memory")])
 def test_quad_scan_ln_cat_matches_jax(shape, dtype):
-    B, H, W, D = shape
-    a = _quad_inputs(B, H, W, D, seed=D)
+    B, H, W, D, *long_memory = shape
+    a = _quad_inputs(B, H, W, D, seed=D, long_memory=bool(long_memory))
     act = {k: _both(a[k], dtype) for k in ("u", "dt", "Bs", "Cs")}
     prm = {k: _both(a[k]) for k in ("A", "bias", "Dv", "lns", "lnb")}
     dirs = (1, 2, 3, 4)
