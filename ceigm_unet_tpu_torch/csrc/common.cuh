@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +55,7 @@ __device__ __forceinline__ float lg2(float x) {
 // A direction's walk over the H*W pixels (1 row-major, 2 column-major, 3/4
 // those reversed): the pixel at step t, and the pixel after p step by step
 // (p += inc; where that leaves [0, L), a column walk passing the end of a
-// column, p += wrap).
+// column, p += wrap), or before it (the inverse).
 struct Walk {
   int H, W, L, inc, wrap;
   bool rev, col;
@@ -81,7 +82,49 @@ struct Walk {
     p += inc;
     return (unsigned)p >= (unsigned)L ? p + wrap : p;
   }
+  __device__ __forceinline__ int prev(int p) const {
+    p -= inc;
+    return (unsigned)p >= (unsigned)L ? p - wrap : p;
+  }
 };
+
+// V-wide fp32 items (V = 4, 2, 1: 16-, 8- and 4-byte accesses)
+template <int V> struct VecOf;
+template <> struct VecOf<4> { typedef float4 T; };
+template <> struct VecOf<2> { typedef float2 T; };
+template <> struct VecOf<1> { typedef float T; };
+
+template <int V>
+__device__ __forceinline__ void load_v(float (&x)[V], const float* p) {
+  const typename VecOf<V>::T t =
+      __ldg(reinterpret_cast<const typename VecOf<V>::T*>(p));
+  const float* f = reinterpret_cast<const float*>(&t);
+#pragma unroll
+  for (int v = 0; v < V; ++v) x[v] = f[v];
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&x)[V]) {
+  typename VecOf<V>::T t;
+  float* f = reinterpret_cast<float*>(&t);
+#pragma unroll
+  for (int v = 0; v < V; ++v) f[v] = x[v];
+  *reinterpret_cast<typename VecOf<V>::T*>(p) = t;
+}
+
+// The widest item of 4, 2, 1 floats that divides each of ns (channel
+// counts, offsets, strides) and aligns each of ptrs.
+inline int vec_width(std::initializer_list<long long> ns,
+                     std::initializer_list<const void*> ptrs) {
+  for (int V = 4; V > 1; V >>= 1) {
+    bool ok = true;
+    for (long long n : ns) ok = ok && n % V == 0;
+    for (const void* x : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(x) % (4 * V) == 0;
+    if (ok) return V;
+  }
+  return 1;
+}
 
 // dtype codes shared with ops/_build.py DTYPE_CODES
 enum { kF32 = 0, kBF16 = 1 };

@@ -7,9 +7,12 @@ Both libraries are built with the same flags (``ops/_build.py``). Each
 case is checked against its plain version on both, then timed with CUDA
 events in the order base, this, this, base; the line per case prints both
 medians and the bound. The cases are K8 (``scan2d``, scan and adjoint
-modes) at the b48 224x224 training shapes of gm_tiny (D <= 128, which
-both versions take) and of the legacy tiny_0230s (for this checkout
-alone where the base refuses D > 128), and K3's GEMM (``cffn_gemm``) at
+modes) at the b48 224x224 training shapes of gm_tiny and of the legacy
+tiny_0230s, as device time, on contiguous operands and in the layouts the
+backward hands it (each entry point called directly, one without strides
+on contiguous copies as its wrapper made them, and through this
+checkout's wrapper, also with the host in the loop; a base that refuses a
+shape is left out of it), and K3's GEMM (``cffn_gemm``) at
 the six fc1/fc2 shapes of a b128 bf16 224x224 gm_tiny forward, beside the
 bf16-output ``torch.addmm`` and, for fc1, the fp32-output one (the same
 function). This checkout's GEMM is timed through ``ffn_gemm``, its
@@ -31,14 +34,17 @@ and through this checkout's wrapper, beside ``F.conv2d`` /
 the four tiny_0230s SS2D shapes of a b128 bf16 legacy forward with a
 stride-0 u; and K1 / K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln`` and
 ``quad_scan_ln_q8``) at the four gm_tiny quad-block shapes of a b128 bf16
-forward in the model's strided layout. These are device times: the queue
-is held behind a spin kernel while the timed calls are enqueued, so host
-time per call does not enter. ``--kernels`` picks groups of cases (all
+forward in the model's strided layout; and K3's inception stencil
+(``cffn_inception7``) at the three b128 CustomFfn shapes beside
+``F.conv2d``. These are device times: the queue is held behind a spin
+kernel while the timed calls are enqueued, so host time per call does not
+enter. ``--kernels`` picks groups of cases (all
 by default). Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import statistics
 import subprocess
 import tempfile
@@ -89,12 +95,28 @@ SSCAN_DIR = [(56, 96, 4), (28, 192, 4), (14, 384, 10), (7, 768, 2)]
 SPIN_CYCLES = 40_000_000
 
 
-def _scan2d(lib, a, b, S, adjoint):
-    out = torch.empty_like(a)
+def _scan2d_takes_strides(lib, csrc: Path) -> bool:
+    """Whether ``csrc``'s ``scan2d`` takes a's and b's strides (an older
+    one takes contiguous operands only); declares the entry point's
+    arguments on ``lib`` accordingly."""
+    strided = "long long sa0" in (csrc / "scan2d.cu").read_text()
+    _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.scan2d.argtypes = ([_P] * 3 + ([_L] * 6 if strided else [])
+                           + [_I] * 10 + [_P])
+    return strided
+
+
+def _scan2d(lib, strided, a, b, S, adjoint):
+    """The C entry ``scan2d`` of ``lib``; an entry point without strides
+    gets contiguous copies of a and b, as its wrapper made them."""
+    if not strided:
+        a, b = a.contiguous(), b.contiguous()
     B, K, _, D = a.shape
-    err = lib.scan2d(_build.ptr(a), _build.ptr(b), _build.ptr(out), B, K, S,
-                     S, D, 1, 2, 3, 4, int(adjoint),
-                     torch.cuda.current_stream().cuda_stream)
+    out = torch.empty((B, K, S * S, D), dtype=torch.float32, device=a.device)
+    p = _build.ptr
+    strides = [*a.stride()[:3], *b.stride()[:3]] if strided else []
+    err = lib.scan2d(p(a), p(b), p(out), *strides, B, K, S, S, D, 1, 2, 3,
+                     4, int(adjoint), _stream())
     if err:
         raise RuntimeError(f"scan2d failed to launch: cudaError_t {err}")
     return out
@@ -144,13 +166,30 @@ def _gemm(lib, a, w, bias, out_dtype, rows_nk):
     return out
 
 
-def scan2d_cases(libs, batch, gpu, gen):
+# storage order of a and b as the backward hands them to K8, by mode (scan,
+# adjoint), each a permutation of (B, K, L, D) that is its own inverse:
+# quad_scan_ln_cat_bwd keeps the model's (B, L, K, D) GEMM outputs;
+# sscan_dir_bwd's decay follows dt's (K, B, L, D) per-direction GEMM, and
+# its adjoint's drive C * dy the (B, L, K, D) x_dbl
+MODEL_LAYOUT = {"gm_tiny": {False: ((0, 2, 1, 3), (0, 2, 1, 3)),
+                            True: ((0, 2, 1, 3), (0, 2, 1, 3))},
+                "tiny_0230s": {False: ((1, 0, 2, 3), (1, 0, 2, 3)),
+                               True: ((1, 0, 2, 3), (0, 2, 1, 3))}}
+
+
+def scan2d_cases(libs, strided, batch, gpu, gen):
+    """K8 in both modes at the b48 training shapes of gm_tiny and
+    tiny_0230s, on contiguous operands and in the model's layout
+    (``MODEL_LAYOUT``): each entry point called directly (one without
+    strides on contiguous copies, as its wrapper made them, the copies
+    timed with it) and through this checkout's wrapper. Each is held
+    against its plain version (rtol 1e-4, atol 1e-4 * max), then timed in
+    turns as device time; the wrapper also with the host in the loop. A
+    base that refuses a shape (a launch error) is left out of it."""
     dev = torch.device("cuda")
-    totals = {}
+    dirs = (1, 2, 3, 4)
     for group, cases in (("gm_tiny", GM_TINY), ("tiny_0230s", LEGACY)):
-        # the base kernel may refuse D > 128: then this checkout's alone
-        names = (["base", "this"] if all(D <= 128 for *_, D in cases)
-                 else ["this"])
+        totals, refused = {}, set()
         for tag, calls, S, D in cases:
             shape = (batch, 4, S * S, D)
             a = torch.sigmoid(torch.randn(shape, generator=gen, device=dev)
@@ -159,31 +198,56 @@ def scan2d_cases(libs, batch, gpu, gen):
             bound = 12 * a.numel() / HBM_BPS * 1e3
             for adjoint in (False, True):
                 plain = (quad_scan.scan2d_adjoint_ref if adjoint
-                         else quad_scan.scan2d_ref)(a, b, S, S, (1, 2, 3, 4))
-                ms = {n: [] for n in names}
-                for n in names:
-                    got = _scan2d(libs[n], a, b, S, adjoint)
+                         else quad_scan.scan2d_ref)(a, b, S, S, dirs)
+                am, bm = [t.permute(o).contiguous().permute(o) for t, o in
+                          zip((a, b), MODEL_LAYOUT[group][adjoint])]
+                wrapper = (quad_scan.scan2d_adjoint if adjoint
+                           else quad_scan.scan2d)
+                runs = {}
+                for lay, (x, y) in (("", (a, b)), (", model layout",
+                                                   (am, bm))):
+                    for n, lib in libs.items():
+                        runs[n + lay] = (lambda lib=lib, n=n, x=x, y=y:
+                                         _scan2d(lib, strided[n], x, y, S,
+                                                 adjoint))
+                runs["this wrapper, model layout"] = \
+                    lambda: wrapper(am, bm, S, S, dirs)
+                for n in list(runs):
+                    try:
+                        got = runs[n]()
+                    except RuntimeError:
+                        if not n.startswith("base"):
+                            raise
+                        del runs[n]
+                        refused.add(n)
+                        continue
                     err = (got - plain).abs().max().item()
                     if err > 1e-4 * plain.abs().max().item():
                         raise SystemExit(f"{n} {tag}: max abs err {err:.3e}")
-                for n in names + names[::-1]:
-                    ms[n].append(_time(lambda: _scan2d(libs[n], a, b, S,
-                                                       adjoint)))
+                del plain, got
+                ms = {n: [] for n in runs}
+                for n in list(runs) + list(runs)[::-1]:
+                    ms[n].append(device_time(runs[n]))
                 med = {n: statistics.median(v) for n, v in ms.items()}
-                mode = "adjoint" if adjoint else "scan"
+                med["this wrapper, model layout, host in the loop"] = _time(
+                    runs["this wrapper, model layout"])
+                med["bound"] = bound
                 for n, v in med.items():
-                    totals[group, n] = totals.get((group, n), 0.0) \
-                        + calls * v
-                totals[group, "bound"] = totals.get((group, "bound"), 0.0) \
-                    + calls * bound
-                print(f"scan2d [{tag} {mode}] b{batch} fp32: "
-                      + ", ".join(f"{n} {v:.4f} ms" for n, v in med.items())
-                      + f", bound {bound:.4f} ms | {gpu}", flush=True)
-            del a, b, plain
-        print(f"scan2d per b{batch} unfrozen {group} step: "
-              + ", ".join(f"{n} {totals[group, n]:.3f} ms" for n in
-                          ("base", "this", "bound") if (group, n) in totals),
-              flush=True)
+                    totals[n] = totals.get(n, 0.0) + calls * v
+                mode = "adjoint" if adjoint else "scan"
+                print(f"scan2d [{tag} {mode}] x{calls}/step b{batch} fp32, "
+                      "device ms: " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                                med.items())
+                      + f", this wrapper / bound "
+                      f"{med['this wrapper, model layout'] / bound:.2f}"
+                      f" | {gpu}", flush=True)
+                del am, bm
+            del a, b
+        # a base that refused a shape has no per-step sum
+        print(f"scan2d per b{batch} unfrozen {group} step, device ms: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()
+                          if n not in refused), flush=True)
+        torch.cuda.empty_cache()
 
 
 def gemm_cases(base_lib, this_lib, base_rows_nk, gpu, gen):
@@ -565,8 +629,80 @@ def quad_scan_ln_cases(libs, gpu, gen):
                           if k == kernel), flush=True)
 
 
+# (side, HID, identity channels, calls per b128 forward): the inception
+# stencil of the 7 decoder CustomFfns (3 at 14x14, 2 at 28x28, 2 at 56x56)
+STENCIL = [(14, 1392, 870, 3), (28, 512, 320, 2), (56, 256, 160, 2)]
+
+
+def _inception7(lib, q, taps, bias, S, n_id):
+    M, HID = q.shape
+    out = torch.empty_like(q)
+    p = _build.ptr
+    err = lib.cffn_inception7(p(q), p(taps), p(bias), p(out), M // (S * S),
+                              S, S, HID, n_id, _stream())
+    if err:
+        raise RuntimeError(f"cffn_inception7 failed to launch: cudaError_t "
+                           f"{err}")
+    return out
+
+
+def stencil_cases(libs, gpu, gen):
+    """K3's inception stencil (``cffn_inception7``) at the three b128
+    CustomFfn shapes (fp32 hidden, the composite of random 3x3/5x5/7x7
+    taps), each entry point called directly and through this checkout's
+    wrapper, held against inception7_ref at the fp32 tolerance (rtol 1e-4,
+    atol 1e-4 * max; TF32 off), then timed in turns as device time beside
+    F.conv2d (groups=HID, on the channels-last NCHW view of the hidden) and
+    the bound (chip_smoke.py phase 3's count)."""
+    dev = torch.device("cuda")
+    rnd = lambda shape, scale=1.0: torch.randn(
+        shape, generator=gen, device=dev) * scale
+    totals = {}
+    for S, HID, n_id, calls in STENCIL:
+        g, B = HID // 8, 128
+        k, bias = ffn.inception_composite(
+            HID, g, rnd((3, 3, 1, g), 0.2), rnd((5, 5, 1, g), 0.1),
+            rnd((7, 7, 1, g), 0.05), rnd((g,), 0.1), rnd((g,), 0.1),
+            rnd((g,), 0.1), torch.float32)
+        taps = k.reshape(49, HID).contiguous()
+        q = rnd((B * S * S, HID))
+        plain = ffn.inception7_ref(q, k, bias, S, S, n_id)
+        runs = {n: (lambda lib=lib: _inception7(lib, q, taps, bias, S, n_id))
+                for n, lib in libs.items()}
+        runs["this op"] = lambda: ffn.inception7(q, k, bias, S, S, n_id)
+        scale = plain.abs().max().item()
+        for n, fn in runs.items():
+            err = (fn() - plain).abs()
+            if bool((err > 1e-4 * scale + 1e-4 * plain.abs()).any()):
+                raise SystemExit(f"{n} cffn_inception7 {S}x{S} HID{HID}: "
+                                 f"max abs err {err.max().item():.3e}")
+        del plain
+        ms = {n: [] for n in runs}
+        for n in ["base", "this", "this op", "this op", "this", "base"]:
+            ms[n].append(device_time(runs[n]))
+        med = {n: statistics.median(v) for n, v in ms.items()}
+        # q + conv(q) is one depthwise conv whose centre tap is + 1
+        k_id = k.clone()
+        k_id[3, 3] += 1.0
+        w = k_id.permute(3, 2, 0, 1).contiguous()
+        q_nchw = q.view(B, S, S, HID).permute(0, 3, 1, 2)
+        med["F.conv2d"] = device_time(
+            lambda: F.conv2d(q_nchw, w, bias, padding=3, groups=HID))
+        med["bound"] = (8 * q.numel() + 200 * HID) / HBM_BPS * 1e3
+        for n, v in med.items():
+            totals[n] = totals.get(n, 0.0) + calls * v
+        print(f"cffn_inception7 [{S}x{S} HID{HID} n_id {n_id}] x{calls}/"
+              "forward b128 fp32, device ms: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in med.items())
+              + f", this / bound {med['this'] / med['bound']:.2f} | {gpu}",
+              flush=True)
+        del q, q_nchw, runs
+    print("cffn_inception7 per b128 forward, device ms: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()), flush=True)
+
+
 KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir",
-           "quad_scan_ln")
+           "quad_scan_ln", "cffn_stencil")
 
 
 def main() -> int:
@@ -581,6 +717,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -592,7 +729,9 @@ def main() -> int:
                 "this": _build.library()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "scan2d" in args.kernels:
-        scan2d_cases(libs, args.batch, gpu, gen)
+        strided = {n: _scan2d_takes_strides(libs[n], csrc)
+                   for n, csrc in (("base", base), ("this", _build.CSRC))}
+        scan2d_cases(libs, strided, args.batch, gpu, gen)
     if "cffn_gemm" in args.kernels:
         gemm_cases(libs["base"], libs["this"],
                    (base / "cffn_gemm.cu").exists(), gpu, gen)
@@ -607,6 +746,8 @@ def main() -> int:
         sscan_dir_cases(libs, gpu, gen)
     if "quad_scan_ln" in args.kernels:
         quad_scan_ln_cases(libs, gpu, gen)
+    if "cffn_stencil" in args.kernels:
+        stencil_cases(libs, gpu, gen)
     return 0
 
 

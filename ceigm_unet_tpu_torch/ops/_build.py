@@ -46,7 +46,7 @@ SIGNATURES = {
     "dwconv3x3": [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P],
     "dwconv3x3_flip": [_P] * 3 + [_L] * 3 + [_I] * 5 + [_P],
     "lgag_gate": [_P] * 8 + [_I] * 5 + [_P],
-    "scan2d": [_P] * 3 + [_I] * 10 + [_P],
+    "scan2d": [_P] * 3 + [_L] * 6 + [_I] * 10 + [_P],
     "sscan_dir": [_P] * 8 + [_L] * 14 + [_I] * 10 + [_P],
     "scan_rows": [_P] * 3 + [_I] * 2 + [_P],
     "selective_scan_n1": [_P] * 8 + [_I] * 6 + [_P],

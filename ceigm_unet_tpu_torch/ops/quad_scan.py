@@ -108,6 +108,12 @@ def _scan2d_call(a, b, H: int, W: int, directions: Sequence[int],
                          f"H*W {H * W} directions {tuple(directions)}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"{what}: takes float32, got {a.dtype}, {b.dtype}")
+    # the kernel takes any strides over B, K and L and reads each pixel's
+    # channels in one piece; the same layouts are refused on every device
+    for name, t in (("a", a), ("b", b)):
+        if D > 1 and t.stride(3) != 1:
+            raise ValueError(f"{what}: {name} needs unit stride over D, got "
+                             f"strides {t.stride()}")
     if a.device.type == "cpu":
         ref = scan2d_adjoint_ref if adjoint else scan2d_ref
         return ref(a, b, H, W, directions)
@@ -115,13 +121,12 @@ def _scan2d_call(a, b, H: int, W: int, directions: Sequence[int],
         raise ValueError(f"{what}: no kernel for {a.device}")
     if K > 4 or any(int(d) not in (1, 2, 3, 4) for d in directions):
         raise ValueError(f"{what}: directions {directions}")
-    ac, bc = a.contiguous(), b.contiguous()
-    _build.check_cuda(ac, bc)
-    out = torch.empty_like(ac)
+    _build.check_cuda(a, b)
+    out = torch.empty((B, K, L, D), dtype=torch.float32, device=a.device)
     dirs = [int(d) for d in directions] + [1] * (4 - K)
     p = _build.ptr
-    _build.launch("scan2d", p(ac), p(bc), p(out), B, K, H, W, D, *dirs,
-                  int(adjoint))
+    _build.launch("scan2d", p(a), p(b), p(out), *a.stride()[:3],
+                  *b.stride()[:3], B, K, H, W, D, *dirs, int(adjoint))
     return out
 
 
@@ -129,7 +134,9 @@ def scan2d(a: torch.Tensor, b: torch.Tensor, H: int, W: int,
            directions: Sequence[int]) -> torch.Tensor:
     """h_t = a_t*h_{t-1} + b_t along each group's direction (the JAX
     package's ``scan2d``, all K groups at once). a, b: (B, K, H*W, D) fp32
-    in row-major pixel order; h is returned in the same order."""
+    in row-major pixel order, any strides over B, K and H*W and unit stride
+    over D (others raise ValueError); h is returned contiguous, in the same
+    order."""
     return _scan2d_call(a, b, H, W, directions, adjoint=False)
 
 

@@ -37,8 +37,11 @@ exits non-zero without its last line:
    (max abs error <= 0.05 * max|fp32 logits|);
 7. scan2d: the quad scan's backward recurrence (``csrc/scan2d.cu``), scan
    and adjoint modes, against its plain version at every batch-48 224x224
-   training shape, fp32 (TF32 off; rtol 1e-4, atol 1e-4 * max|plain|), timed
-   beside it;
+   training shape, fp32 (TF32 off; rtol 1e-4, atol 1e-4 * max|plain|), on
+   contiguous operands and in the model's (B, L, K, D) layout, and on a
+   long-memory case (decays within 1e-4 of 1 over 3136 pixels); timed
+   through the wrapper in the model's layout, host in the loop and device
+   time, beside the plain version;
 8. train step vs CPU: one unfrozen gm_tiny train step, batch 2, fp32, on
    the card and on the CPU from the same weights, batch and drop-path
    masks: the loss, every parameter's gradient (rtol 2e-3, atol 1e-8 +
@@ -102,7 +105,9 @@ exits non-zero without its last line:
 17. legacy scan backward kernels: K8 (``csrc/scan2d.cu``), scan and
    adjoint modes, at the four tiny_0230s 224x224 SS2D shapes (D 96 to
    768, past one 128-channel tile) at b2 and b48 fp32 against its plain
-   version (phase 7's tolerance), timed at b48 beside it with the bound;
+   version (phase 7's tolerance and cases, in the layouts the legacy
+   backward passes: the decay in (K, B, L, D), the adjoint's drive in
+   (B, L, K, D)), timed at b48 beside it with the bound;
 18. legacy train step vs CPU: phase 8's check on one unfrozen tiny_0230s
    b2 fp32 step (loss, every gradient against its tolerance or twice its
    own reorder floor, the BN running statistics of the 3 LKPE and the
@@ -648,11 +653,41 @@ def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
                  what="gm_tiny"):
     """K8 against its plain version at each of ``shapes`` ((tag, calls per
     unfrozen step, side, D)) at each of ``batches``, both modes, fp32
-    (TF32 off); timed at the last batch beside the plain version. Returns
-    the kernel's entry for the kernels line, and the per-step sums."""
+    (TF32 off), on contiguous operands and in the layout the backward hands
+    it (``kernel_ab.MODEL_LAYOUT``), and on a long-memory case; timed at
+    the last batch through the wrapper in the model's layout (what the
+    path runs) with the host in the loop (``ms``) and as device time
+    (``device_ms``), beside the plain version. Returns the kernel's entry
+    for the kernels line, and the per-step sums."""
+    from ceigm_unet_tpu_torch.kernel_ab import MODEL_LAYOUT, device_time
     from ceigm_unet_tpu_torch.ops import quad_scan
     gen = torch.Generator().manual_seed(SEED)
-    err = ms = plain_ms = bound = 0.0
+    err = ms = dev_ms = plain_ms = bound = 0.0
+    modes = (("scan", quad_scan.scan2d, quad_scan.scan2d_ref, False),
+             ("adjoint", quad_scan.scan2d_adjoint,
+              quad_scan.scan2d_adjoint_ref, True))
+
+    def check(a, b, S, kern, plain, adjoint):
+        am, bm = [t.permute(o).contiguous().permute(o) for t, o in
+                  zip((a, b), MODEL_LAYOUT[what][adjoint])]
+        e = 0.0
+        for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+            want = plain(a, b, S, S, dirs)
+            e = max(e, compare(kern(a, b, S, S, dirs), want, torch.float32),
+                    compare(kern(am, bm, S, S, dirs), want, torch.float32))
+        return e, am, bm
+
+    # long memory (not on the path): decays within 1e-4 of 1, so the state
+    # carries across every run of the 56x56 walk
+    S, D = shapes[0][2], shapes[0][3]
+    shape = (2, 4, S * S, D)
+    a = 1 - 1e-4 * torch.rand(shape, generator=gen).to(dev)
+    b = torch.randn(shape, generator=gen).to(dev)
+    for mode, kern, plain, adjoint in modes:
+        e, *_ = check(a, b, S, kern, plain, adjoint)
+        err = max(err, e)
+        log(f"kernel scan2d [{what} {S}x{S} D{D} long memory {mode}] b2 "
+            f"fp32: max abs err {e:.3e} (contiguous and model layout)")
     for tag, calls, S, D in shapes:
         for batch in batches:
             shape = (batch, 4, S * S, D)
@@ -662,38 +697,37 @@ def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
                 dev)
             b = torch.randn(shape, generator=gen).to(dev)
             n = a.numel()
-            for mode, kern, plain in (
-                    ("scan", quad_scan.scan2d, quad_scan.scan2d_ref),
-                    ("adjoint", quad_scan.scan2d_adjoint,
-                     quad_scan.scan2d_adjoint_ref)):
-                for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
-                    e = compare(kern(a, b, S, S, dirs),
-                                plain(a, b, S, S, dirs), torch.float32)
-                    err = max(err, e)
+            for mode, kern, plain, adjoint in modes:
+                e, am, bm = check(a, b, S, kern, plain, adjoint)
+                err = max(err, e)
                 if batch != batches[-1]:
                     continue
-                k_ms = time_ms(lambda: kern(a, b, S, S, dirs), 10)
+                dirs = (1, 2, 3, 4)
+                k_ms = time_ms(lambda: kern(am, bm, S, S, dirs), 10)
+                kd_ms = device_time(lambda: kern(am, bm, S, S, dirs), 10)
                 p_ms = time_ms(lambda: plain(a, b, S, S, dirs), 3)
                 # a and b read, the result written, fp32; one FMA per
                 # element
                 b_ms = max(12 * n / HBM_BPS, 2 * n / PEAK["fp32"]) * 1e3
                 ms += calls * k_ms
+                dev_ms += calls * kd_ms
                 plain_ms += calls * p_ms
                 bound += calls * b_ms
                 log(f"kernel scan2d [{what} {tag} {mode}] x{calls}/train "
-                    f"step: b{batch} fp32 {k_ms:.4f} ms, plain {p_ms:.4f} "
-                    f"ms, bound {b_ms:.4f} ms (bytes), max abs err "
-                    f"{e:.3e} | {gpu}")
+                    f"step: b{batch} fp32, model layout {k_ms:.4f} ms "
+                    f"(device {kd_ms:.4f} ms), plain {p_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms (bytes), max abs err {e:.3e} | {gpu}")
+                del am, bm
             del a, b
     log(f"kernel scan2d {what}: max abs err fp32 {err:.3e} at b{batches}; "
-        f"per b{batches[-1]} train step {ms:.3f} ms vs plain "
-        f"{plain_ms:.3f} ms, bound {bound:.4f} ms")
+        f"per b{batches[-1]} train step {ms:.3f} ms (device {dev_ms:.3f} "
+        f"ms) vs plain {plain_ms:.3f} ms, bound {bound:.4f} ms")
     torch.cuda.empty_cache()
     return dict(name="scan2d", route="cuda",
                 source="ceigm_unet_tpu_torch/csrc/scan2d.cu",
                 replaces="ceigm_unet_tpu/ops/quad_scan.py:176 _scan2d_kernel",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=None, device_ms=dev_ms)
 
 
 def _trainer(model, dev):
@@ -1476,7 +1510,8 @@ def phase_legacy_scan2d(dev, gpu):
     r = phase_scan2d(dev, gpu, LEGACY_SCAN_SHAPES, (2, TRAIN_BATCH),
                      "tiny_0230s")
     return {f"{k}_legacy_step": r[k] for k in ("max_abs_err", "ms",
-                                                "plain_ms", "bound_ms")}
+                                                "device_ms", "plain_ms",
+                                                "bound_ms")}
 
 
 def phase_legacy_trainer(dev, gpu):

@@ -23,6 +23,7 @@ from ceigm_unet_tpu_torch.ops.dwconv import (dwconv3x3, dwconv3x3_flip,
                                              dwconv3x3_ref)
 from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
                                           custom_ffn_fused_ref,
+                                          inception7, inception7_ref,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   dysample_grid_sample_ref,
@@ -256,23 +257,115 @@ def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
 
+# storage orders of a and b (permutations of (B, K, L, D), each its own
+# inverse) as the backward hands them to K8: the quad scan's (B, L, K, D)
+# GEMM outputs; the legacy scan's decay in dt's (K, B, L, D) and its
+# adjoint's drive in the (B, L, K, D) x_dbl
+SCAN2D_LAYOUTS = {"contiguous": ((0, 1, 2, 3), (0, 1, 2, 3)),
+                  "model": ((0, 2, 1, 3), (0, 2, 1, 3)),
+                  "legacy": ((1, 0, 2, 3), (0, 2, 1, 3))}
+
+
+def _scan2d_operands(g, shape, dev, layout, long_memory=False):
+    """a (decays in (0, 1), mostly near 1; or, with long memory, within
+    1e-4 of 1, so the state carries across every run of a 56x56 walk) and
+    b in ``layout``; "stride0" is a and b read through stride-0 views over
+    K (one (B, 1, L, D) tensor each), as an expanded activation."""
+    B, H, W, D = shape
+    K, L = 4, H * W
+    if layout == "stride0":
+        a = torch.sigmoid(_rand(g, (B, 1, L, D), dev, 2.0) + 2.0)
+        b = _rand(g, (B, 1, L, D), dev)
+        return a.expand(B, K, L, D), b.expand(B, K, L, D)
+    a = (1 - 1e-4 * torch.rand((B, K, L, D), generator=g).to(dev)
+         if long_memory else torch.sigmoid(_rand(g, (B, K, L, D), dev, 2.0)
+                                           + 2.0))
+    b = _rand(g, (B, K, L, D), dev)
+    return [t.permute(o).contiguous().permute(o)
+            for t, o in zip((a, b), SCAN2D_LAYOUTS[layout])]
+
+
 @pytest.mark.parametrize("adjoint", [False, True])
-# gm_tiny b48 224x224: stage 1 (56x56, D 16) and stage 3 (14x14, D 87); the
-# legacy tiny_0230s widths past one 128-channel tile: stage 1 (D 96), a
-# ragged 200 (two tiles of 100), stage 4 (D 768, six tiles)
+@pytest.mark.parametrize("layout", ["contiguous", "model", "legacy",
+                                    "stride0"])
+# gm_tiny b48 224x224: stage 1 (56x56, D 16), stage 3 (14x14, D 87) and
+# stage 4 (7x7, D 112) with 388 blocks, a partial last wave; the legacy
+# tiny_0230s widths: stage 1 (D 96), stage 4 (D 768, six channel tiles); a
+# ragged 200 (two tiles of 25 16-byte items); L 15 and 117, below and not a
+# multiple of a run, with H != W under the column walks; D 1, 6 and 3 (4-,
+# 8- and 4-byte accesses); D 128
 @pytest.mark.parametrize("shape", [(48, 56, 56, 16), (48, 14, 14, 87),
-                                   (1, 3, 5, 128), (2, 56, 56, 96),
-                                   (3, 6, 8, 200), (4, 7, 7, 768)])
-def test_scan2d_kernel(dev, shape, adjoint):
+                                   (97, 7, 7, 112), (1, 3, 5, 128),
+                                   (2, 56, 56, 96), (3, 6, 8, 200),
+                                   (4, 7, 7, 768), (2, 3, 5, 16),
+                                   (3, 13, 9, 32), (2, 6, 10, 1),
+                                   (2, 5, 7, 6), (2, 9, 4, 3)])
+def test_scan2d_kernel(dev, shape, adjoint, layout):
     B, H, W, D = shape
     g = torch.Generator().manual_seed(D)
-    K, L = 4, H * W
-    a = torch.sigmoid(_rand(g, (B, K, L, D), dev, 2.0) + 2.0)
-    b = _rand(g, (B, K, L, D), dev)
+    a, b = _scan2d_operands(g, shape, dev, layout)
     kern, ref = ((scan2d_adjoint, scan2d_adjoint_ref) if adjoint
                  else (scan2d, scan2d_ref))
     for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
-        _close(kern(a, b, H, W, dirs), ref(a, b, H, W, dirs), "float32")
+        got = kern(a, b, H, W, dirs)
+        assert got.is_contiguous()
+        _close(got, ref(a.contiguous(), b.contiguous(), H, W, dirs),
+               "float32")
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+@pytest.mark.parametrize("shape", [(2, 56, 56, 16), (2, 56, 56, 96),
+                                   (3, 13, 9, 87)])
+def test_scan2d_kernel_long_memory(dev, shape, adjoint):
+    """Decays within 1e-4 of 1 over 3136 pixels: the state carries across
+    every run and round of the walk, so a wrong carry-in shows far above
+    the fp32 tolerance."""
+    B, H, W, D = shape
+    g = torch.Generator().manual_seed(D + 1)
+    a, b = _scan2d_operands(g, shape, dev, "model", long_memory=True)
+    kern, ref = ((scan2d_adjoint, scan2d_adjoint_ref) if adjoint
+                 else (scan2d, scan2d_ref))
+    for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
+        _close(kern(a, b, H, W, dirs),
+               ref(a.contiguous(), b.contiguous(), H, W, dirs), "float32")
+
+
+def _inception_taps(g, HID, n_id, dev):
+    """(7, 7, 1, HID) taps, random on [n_id, HID) and the identity (the
+    centre tap 1) on [0, n_id), as the composite has them there; random
+    bias on every channel."""
+    k = _rand(g, (7, 7, 1, HID), dev, 0.1)
+    k[:, :, :, :n_id] = 0.0
+    k[3, 3, :, :n_id] = 1.0
+    return k, _rand(g, (HID,), dev, 0.1)
+
+
+@pytest.mark.parametrize("case", [
+    # the three b128 model shapes at b2 (n_id 870 allows 8-byte items)
+    (2, 14, 14, 1392, 870, 0), (2, 28, 28, 512, 320, 0),
+    (2, 56, 56, 256, 160, 0),
+    # H below a strip, W over one tile (two tiles of 20); H != W
+    (3, 5, 40, 96, 60, 0), (2, 9, 37, 64, 24, 0),
+    # n_id 0 (every channel tapped) and HID (none); an odd n_id (4-byte
+    # items); HID 90 (8-byte) and 87 (4-byte), a partial channel group
+    (2, 11, 12, 128, 0, 0), (2, 11, 12, 128, 128, 0),
+    (2, 10, 9, 128, 61, 0), (2, 7, 13, 90, 30, 0), (2, 8, 8, 87, 33, 0),
+    # the hidden's base pointer one element past a 16-byte boundary
+    (2, 14, 14, 256, 160, 1)], ids=lambda c: "b{}-{}x{}-HID{}-id{}-off{}"
+                               .format(*c))
+def test_inception7_kernel(dev, case):
+    """``inception7`` (K3's stencil, ``cffn_inception7``) against
+    ``inception7_ref`` at the fp32 tolerance."""
+    B, H, W, HID, n_id, offset = case
+    g = torch.Generator().manual_seed(HID + n_id)
+    k, bias = _inception_taps(g, HID, n_id, dev)
+    M = B * H * W
+    q = _rand(g, (M * HID + offset,), dev)[offset:].view(M, HID)
+    assert q.data_ptr() % 16 == 4 * offset
+    _build.reset_launch_counts()
+    got = inception7(q, k, bias, H, W, n_id)
+    assert dict(_build.launch_counts) == {"cffn_inception7": 1}
+    _close(got, inception7_ref(q, k, bias, H, W, n_id), "float32")
 
 
 def _quad_leaves(g, B, H, W, D, dev, dtype):

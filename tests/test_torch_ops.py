@@ -31,7 +31,10 @@ from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused, dw3_gelu,
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   grid_sample_bilinear)
 from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
-                                                quad_scan_ln_cat_ref)
+                                                quad_scan_ln_cat_ref, scan2d,
+                                                scan2d_adjoint,
+                                                scan2d_adjoint_ref,
+                                                scan2d_ref)
 from ceigm_unet_tpu_torch.ops.resize import zoom_slices, zoom_slices_nearest
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate, lgag_gate_eval
 
@@ -122,6 +125,41 @@ def test_quad_scan_direction_order_and_strides():
             H, W, (d,))
         np.testing.assert_allclose(got[..., k * D:(k + 1) * D].numpy(),
                                    one.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_scan2d_takes_the_backward_layouts(adjoint):
+    """K8's wrapper on CPU tensors in the layouts the backward hands it
+    (the quad scan's (B, L, K, D) storage, the legacy scan's decay in
+    (K, B, L, D) beside a (B, L, K, D) drive, stride-0 views over K) equals
+    the plain version on contiguous copies. An operand without unit stride
+    over D, which the kernel cannot take, raises, on the CPU as on a card,
+    instead of being copied."""
+    rng = np.random.default_rng(5)
+    B, K, H, W, D = 2, 4, 5, 6, 8
+    L = H * W
+    a = torch.sigmoid(torch.from_numpy(
+        rng.standard_normal((B, K, L, D)).astype(np.float32)) * 2 + 2)
+    b = torch.from_numpy(rng.standard_normal((B, K, L, D)).astype(np.float32))
+    fn, ref = ((scan2d_adjoint, scan2d_adjoint_ref) if adjoint
+               else (scan2d, scan2d_ref))
+    dirs = (3, 1, 4, 2)
+    lay = lambda t, o: t.permute(o).contiguous().permute(o)
+    cases = [(lay(a, (0, 2, 1, 3)), lay(b, (0, 2, 1, 3))),
+             (lay(a, (1, 0, 2, 3)), lay(b, (0, 2, 1, 3))),
+             (a[:, :1].expand(B, K, L, D), b[:, :1].expand(B, K, L, D))]
+    for am, bm in cases:
+        assert not am.is_contiguous() and not bm.is_contiguous()
+        got = fn(am, bm, H, W, dirs)
+        assert got.is_contiguous()
+        np.testing.assert_allclose(
+            got.numpy(), ref(am.contiguous(), bm.contiguous(), H, W,
+                             dirs).numpy(), rtol=1e-6, atol=1e-6)
+    bad = b.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride over D"):
+        fn(a, bad, H, W, dirs)
+    with pytest.raises(ValueError, match="unit stride over D"):
+        fn(bad, b, H, W, dirs)
 
 
 # --- CustomFfn -----------------------------------------------------------------
