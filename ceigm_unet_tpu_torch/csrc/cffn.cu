@@ -1,295 +1,444 @@
 // CustomFfn: fc1 GEMM + b1 -> depthwise 3x3 + b -> GELU -> q + composite
-// 7x7(q) + b -> fc2 GEMM + b2, as three kernels with an fp32 hidden.
+// 7x7(q) + b -> fc2 GEMM + b2, as two kinds of kernel with an fp32 hidden.
 //
 // Replaces: ceigm_unet_tpu/ops/ffn_pallas.py _cffn_call / _cffn_kernel
 // (with _dw_shift; entry custom_ffn_fused).
 //
 // The TPU kernel computes fc1 and fc2 inside its body; here they are the
-// hand-written GEMM cffn_gemm (cffn_gemm.cu), and this file holds the two
-// stencils between them. The hidden between the kernels is fp32, as in
-// _cffn_kernel.
+// hand-written GEMM cffn_gemm (cffn_gemm.cu), and this file holds the one
+// kernel between them, cffn_dw3_inception7: from the fp32 hidden h that
+// fc1 writes it computes q = gelu(dw3(h) + dwb) and then q + composite
+// 7x7(q) + incb, so q never exists in device memory. The hidden between
+// the kernels is fp32, as in _cffn_kernel.
 //
-// What bounds the stencils on the H100: bytes (the fp32 hidden, 411 MB each
-// way at 56x56, b128: 8 bytes per element, 0.987 ms per b128 forward for
-// each stencil at 3.35 TB/s).
+// What bounds it on the H100: bytes (h read once and the result written
+// once, 8 bytes per element of the hidden: 411 MB at 56x56, b128, 0.987 ms
+// per b128 forward at 3.35 TB/s). Instruction issue comes close (the
+// erf-GELU of every q, the halo's included, and up to 49 FMAs per tapped
+// output), and what the kernel reaches is set by latency: the 7x7's 49
+// taps in registers allow two blocks of 7 warps per SM (128 registers; at
+// three blocks, 80, the 7x7 spilled and took 2.5x as long), too few warps
+// to hide a round trip to memory behind another block's work.
 //
-// cffn_dw3_gelu stages an 8x8-pixel, 32-channel halo tile in shared memory
-// and reads every tap from there.
+// One launch, two kinds of block, interleaved in proportion so that the
+// compute-heavy tap blocks run beside the streaming identity blocks. Both
+// walk up to kStrips strips of kRows = 7 rows (7 divides 14, 28 and 56)
+// top to bottom, stage h in shared memory by asynchronous copies (all of a
+// thread's in flight at once, in 16-byte items where n_id, HID and the
+// pointer allow: 8 at HID 1392, n_id 870; zeros outside the image: dw3's
+// padding of h), and have the next strip's h rows in flight while they
+// compute the current one:
+// - Tap blocks, the channels [n_id, HID), 32 per block, one per lane, over
+//   tw columns (whole width at 14x14 and 28x28, two 28-wide tiles at
+//   56x56). A block first reads which reach R its group's taps need
+//   (1 to 3: the composite's 3x3, 5x5 and 7x7 groups) and runs the 7x7 at
+//   that reach. It keeps two rings of tile rows: the 7 + 2R q rows one
+//   7x7 reads, and 9 h rows. q row r (0 outside the image: the 7x7's zero
+//   padding is of q, where gelu(dwb) would be wrong) comes from h rows r-1
+//   .. r+1 by a rolling 3x3 window down each column, into the slot of a q
+//   row no window reads any more. Then the 7x7: a thread (one channel,
+//   columns wid, wid+7, ...) walks the window's q rows, each row's 2R+1
+//   values read from shared memory once and added into the up to 2R+1
+//   output rows they reach, with the taps in registers; the residual q is
+//   the window's centre.
+// - Identity blocks, the channels [0, n_id) that the inception split
+//   passes through: 2q + incb, 32 channels by up to 48 columns, through a
+//   ring of 16 h rows; a thread walks a strip's 9 rows, adding each row's
+//   3 values into the up to 3 output rows they reach. A block's last group
+//   may reach past n_id into the tap channels: it stores only the channels
+//   below n_id.
 //
-// cffn_inception7 computes, on the channels [n_id, HID), q + the 49-tap
-// composite 7x7 of q (zero padding) + b, for any taps; on [0, n_id), the
-// channels that the inception split passes through, 2q + b. One launch,
-// two kinds of block, interleaved in proportion so that the compute-heavy
-// tap blocks run beside the streaming identity blocks:
-// - Tap blocks. A block takes kRows = 7 output rows (7 divides 14, 28 and
-//   56) by tw columns (whole-width strips at 14x14 and 28x28, two 28-wide
-//   tiles at 56x56) of 32 channels, one per lane. Staging: one step fills
-//   the 13 x (tw+6) x 32 halo tile in shared memory (zeros outside the
-//   image; a compile-time row pitch, so every tap read is an immediate
-//   offset), each warp access whole pixels' 128-byte channel rows, 16
-//   bytes a lane where n_id, HID and the pointer allow (8 at HID 1392,
-//   n_id 870), all of a thread's loads issued before any is stored,
-//   positions advanced by increments (no divides). Compute: a thread (one
-//   channel, one column) walks the strip's 13 input rows top to bottom;
-//   each input row's 7 values are read from shared memory once and added
-//   into the up to 7 output rows they reach, with the 49 taps in registers:
-//   7 shared reads per output instead of 49. The halo costs 13/7 of the
-//   tile's reads from L2 where the strip has rows above and below it.
-// - Identity blocks: 2q + b over [0, n_id) of a range of pixels as an
-//   elementwise pass, 16 loads in flight per thread, 16-byte items where
-//   HID and the pointers allow (a pixel's last item stores only its
-//   channels below n_id).
-// The 49 taps, 7 accumulators and 7 inputs need ~100 registers: at three
-// blocks per SM (80 registers) the compute step spilled and the kernel
-// took 2.5x as long; at two (128) it does not.
-//
-// For the fusion of the two stencils (keeping GELU(dw3(h)) out of device
-// memory), a later kernel changes only the tap blocks' staging step: it
-// reads h for a tile one pixel wider on each side (15 x (tw+8)), computes
-// gelu(dw3(h) + dwb) into the 13 x (tw+6) halo tile (zero outside the
-// image, as now: the 7x7's padding is of q, not of h), and keeps the
-// tile's centre for the residual; the compute step stays. The identity
-// blocks then compute q = gelu(dw3(h) + dwb) of their channels too (a 3x3
-// halo of h), since 2q + b needs q; and the dw3 taps and bias join the
-// kernel's arguments.
-//
-// Versions (b128 per forward, device ms, python -m
-// ceigm_unet_tpu_torch.kernel_ab --kernels cffn_stencil on an H100 80GB
-// HBM3, 700 W, each against its predecessor in one call; PERF.md): an 8x8
-// tile per block, 49 shared reads per output, the identity channels
-// walked 8 pixels per thread with 4-byte accesses: 3.0045; this design
-// with 8-row strips at three blocks per SM (spilling), the identity
-// blocks after the tap blocks: 2.7933; 7-row strips, the blocks
-// interleaved: 2.5730; a compile-time pitch, still at three blocks per SM:
-// 4.0288; at two: 1.6679; 16 identity loads in flight: 1.6193; 16-byte
-// identity items, one staging batch: 1.5477 (bound 0.9867).
+// Versions (b128 per forward, device ms, python
+// tools/port_stencil_variants.py --lgag on copies of each one's csrc/, all
+// in one call, on an H100 80GB HBM3, 700 W; the parent's cffn_dw3_gelu +
+// cffn_inception7: 4.0844 in kernel_ab, bound 0.9868; PERF.md): one strip
+// per tap block, the q tile computed in place with one barrier per q row:
+// 3.2602; the reach per group and strips walked through one ring, spilling
+// up to 396 bytes: 3.3695; seven q rows held in registers per barrier
+// (1.2 KB spilled): 3.7871; separate q and h rings, no barrier within the
+// q phase: 2.8377; the next strip's h rows in flight during the 7x7:
+// 2.7405; identity blocks walking strips with a prefetch: 2.6705; dw3's
+// sum in the plain version's order: 2.6279 (this one; with the exact
+// GELU: 3.1821). Slower and dropped: the q phase's rows unrolled (4.7939,
+// 3.0041), 8 warps per block (2.7793), 144 registers by __maxnreg__
+// (3.9761), and, in another call, 2 strips per tap block (2.7222 against
+// this one's 2.6244).
 #include "common.cuh"
 
 namespace ceigm {
 namespace {
 
-// Abramowitz-Stegun 7.1.26 erf GELU (ops/activations.py), fp32.
+// Abramowitz-Stegun 7.1.26 erf GELU (ops/activations.py), fp32:
+// erf(t) = 1 - p(u) exp(-t^2) with u = 1 / (1 + P t) for t = |x| / sqrt 2,
+// so gelu(x) = x (1 - e) for x >= 0 and x e below, e = p(u) exp(-t^2) / 2
+// (p's coefficients halved). The reciprocal and the exponential by the
+// approximate instructions: a few ulps. chip_smoke.py's train step reads
+// the same gradient margins with these as with the plain version's exact
+// forms, which cost the kernel a fifth more time; what moved those margins
+// past their limit was the order of dw3's sum, which therefore follows the
+// plain version's (the taps row by row, the bias last).
 __device__ __forceinline__ float gelu_as(float x) {
-  const float t0 = x * 0.7071067811865476f;
-  const float s = t0 > 0.f ? 1.f : (t0 < 0.f ? -1.f : 0.f);
-  const float t = fabsf(t0);
-  const float u = 1.f / (1.f + 0.3275911f * t);
-  const float p = u * (0.254829592f + u * (-0.284496736f + u * (1.421413741f +
-                  u * (-1.453152027f + u * 1.061405429f))));
-  const float erf = s * (1.f - p * expf(-t * t));
-  return x * (0.5f + 0.5f * erf);
+  const float t = fabsf(x) * 0.7071067811865476f;
+  const float u = __fdividef(1.f, fmaf(0.3275911f, t, 1.f));
+  const float p = u * (0.127414796f + u * (-0.142248368f + u * (
+      0.7107068705f + u * (-0.7265760135f + u * 0.5307027145f))));
+  // exp(-t^2) = 2^(-x^2 log2(e) / 2)
+  const float e = p * ex2(x * x * -0.7213475204444817f);
+  return x * (x >= 0.f ? 1.f - e : e);
 }
 
-// gelu(depthwise3x3(h) + bias) over NHWC fp32 (B, H, W, HID), 'same' zero
-// padding. A block takes an 8x8 pixel tile of 32 channels: it stages the
-// 10x10 halo in shared memory (coalesced 128-byte channel rows), then each
-// warp computes one tile row for its 32 channels with the taps in
-// registers.
-constexpr int kTile = 8;
+constexpr int kRows = 7;       // output rows per strip (7 | 14, 28, 56)
+constexpr int kWarps = 7;      // per block (two blocks per SM)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxTw = 32;     // tap tile columns
+constexpr int kPitch = kMaxTw + 8;   // a tap tile's row pitch in pixels, any
+                                     // reach: compile-time offsets
+// a tap block's rings at reach 3: the 13 q rows one 7x7 reads, and 9 h rows
+// (7 q rows' inputs); 112.6 KB, two blocks per SM
+constexpr int kSlots = (kRows + 6) + (kRows + 2);
+// strips a tap block walks: 4 of 8 at 56x56 (the first strip's 6 halo q
+// rows are computed once per 4), all of them at 14x14 and 28x28
+constexpr int kStrips = 4;
+constexpr size_t kSmem = (size_t)kSlots * kPitch * 32 * sizeof(float);
+// identity tile columns: a ring of 16 rows of kMaxIw + 2 pixels fits the
+// tap blocks' shared memory
+constexpr int kMaxIw = 48;
+static_assert(16 * (kMaxIw + 2) * 32 * sizeof(float) <= kSmem,
+              "an identity block's ring fits a tap block's shared memory");
 
-__global__ void __launch_bounds__(256)
-dw3_gelu_kernel(const float* __restrict__ in, const float* __restrict__ taps,
-                const float* __restrict__ bias, float* __restrict__ out,
-                int H, int W, int HID) {
-  constexpr int S = kTile + 2;
-  __shared__ float tile[S][S][32];
-  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int y0 = (blockIdx.x / tiles_x) * kTile;
-  const int x0 = (blockIdx.x % tiles_x) * kTile;
-  const long long base = (long long)blockIdx.z * H * W * HID;
-  const int y = y0 + row;
-  const int cb = blockIdx.y * 32;
-  for (int e = threadIdx.x; e < S * S * 32; e += 256) {
-    const int cc = e & 31, pix = e >> 5;
-    const int sy = pix / S, sx = pix % S;
-    const int yy = y0 + sy - 1, xx = x0 + sx - 1;
-    tile[sy][sx][cc] = (yy >= 0 && yy < H && xx >= 0 && xx < W &&
-                        cb + cc < HID)
-        ? in[base + ((long long)yy * W + xx) * HID + cb + cc] : 0.f;
-  }
-  __syncthreads();
-  const int c = cb + lane;
-  if (c >= HID || y >= H) return;
-  float w[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) w[t] = taps[t * HID + c];
-  const float bc = bias[c];
-  for (int j = 0; j < kTile && x0 + j < W; ++j) {
-    float acc = 0.f;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-        acc += tile[row + ky][j + kx][lane] * w[ky * 3 + kx];
-    out[base + ((long long)y * W + x0 + j) * HID + c] = gelu_as(acc + bc);
-  }
-}
-
-// --- cffn_inception7 --------------------------------------------------------
-
-constexpr int kRows = 7;       // output rows per tap block (7 | 14, 28, 56)
-constexpr int kHalo = 3;       // the 7x7's reach
-constexpr int kTR = kRows + 2 * kHalo;   // staged rows
-// staging loads in flight per thread: one batch for the model's tiles
-// (16 at 28 columns of 16-byte items, 19 at 14 of 8-byte ones)
-__host__ __device__ constexpr int staging_batch(int V) {
-  return V == 4 ? 16 : V == 2 ? 20 : 24;
-}
-constexpr int kIdLoads = 16;   // identity loads in flight per thread
-constexpr int kMaxTw = 32;     // tile columns
-constexpr int kPitch = kMaxTw + 2 * kHalo;   // staged columns, any tile
-                                             // width: compile-time offsets
-constexpr int kMaxWarps = 7;   // per block (two blocks per SM)
-
-struct IncArgs {
-  const float* q; const float* taps; const float* bias; float* out;
+struct Args {
+  const float* h; const float* dwk; const float* dwb;
+  const float* inck; const float* incb; float* out;
   int H, W, HID, n_id;
-  int tw, tiles_x, tiles_y, groups;   // tap blocks
-  long long tap_blocks, blocks;  // tap blocks, all blocks
-  int id_pix, id_items;        // identity blocks: pixels, items per pixel
-  int id_v;                    // identity item width (floats)
-  int id_dq, id_dr;            // blockDim = id_dq pixels + id_dr items
-  long long M;                 // B*H*W pixels
+  int tiles_y;                             // strips of kRows rows
+  int tw, tiles_x, groups, ts, chunks_y;   // tap blocks: ts strips each
+  int iw, itiles_x, igroups, ichunks;      // identity blocks: ts strips
+  long long tap_blocks, blocks;            // tap blocks, all blocks
 };
 
-// A tap block: stage the halo tile of channels c0 .. c0+31 with V-wide
-// items, then the sliding-window 7x7.
+template <int B>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  // src-size 0 fills the item with zeros and reads nothing
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(B), "r"(valid ? B : 0));
+}
+
+// Stage rows x cols pixels of channels c0 .. c0+31 (nch of them) in V-wide
+// items into a ring of S rows of `pitch` pixels of 32 floats: image pixel
+// (yo + r, xo + c) of the image at src (channel c0) into row (slot0 + r)
+// mod S, column c; 0 outside the image and past nch. Thread -> (pixel,
+// item), advanced by increments; every item is an asynchronous copy, so all
+// of them are in flight at once without holding registers (staged() waits
+// for them).
 template <int V>
-__device__ __forceinline__ void tap_block(const IncArgs& p, float* tile,
+__device__ __forceinline__ void stage(float* tile, int pitch, int slot0,
+                                      int S, const float* src, int rows,
+                                      int cols, int yo, int xo, int H, int W,
+                                      int HID, int nch) {
+  constexpr int ipp = 32 / V;              // items per pixel
+  constexpr int step = kThreads / ipp;
+  const int it = threadIdx.x % ipp;
+  const int n_pix = rows * cols;
+  const int dr = step / cols, dc = step - dr * cols;
+  const bool ch_ok = it * V < nch;
+  int e = threadIdx.x / ipp;
+  int sr = e / cols, sc = e - sr * cols;
+  for (; e < n_pix; e += step) {
+    const int yy = yo + sr, xx = xo + sc;
+    const bool in = ch_ok && yy >= 0 && yy < H && xx >= 0 && xx < W;
+    const int slot = slot0 + sr - (slot0 + sr >= S ? S : 0);
+    cp_async<4 * V>(tile + (slot * pitch + sc) * 32 + it * V,
+                    in ? src + ((long long)yy * W + xx) * HID + it * V : src,
+                    in);
+    sr += dr;
+    sc += dc;
+    if (sc >= cols) sc -= cols, ++sr;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's staging copies, then for the block's.
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+// A tap block at reach R (its taps zero outside the centred (2R+1)^2
+// window): strips ty0 .. ty1-1 of tile columns x0 .. x0+tw-1, channels
+// c0 .. c0+31, walked top to bottom. Two rings of tile rows: QS = 7 + 2R q
+// rows (q row r in slot r mod QS: one strip's 7x7 window) and HS = 9 h rows
+// (h row r in slot r mod HS). The first strip's window is computed in
+// rounds of at most 7 q rows (each staging the h rows past the two it
+// keeps). Each later strip needs 7 new q rows, from 7 new h rows: those are
+// staged into the slots of h rows already spent while the previous strip's
+// 7x7 runs, so the copies' latency hides behind it; the new q rows then
+// take the slots of the window rows no later window reads.
+template <int V, int R>
+__device__ __forceinline__ void tap_strips(const Args& p, float* tile,
+                                           int g, int tx, int ty0, int ty1,
+                                           int bi) {
+  constexpr int QS = kRows + 2 * R;        // q ring: a 7x7 window
+  constexpr int HS = kRows + 2;            // h ring
+  constexpr int K = 2 * R + 1;             // taps per row
+  constexpr int kQC = (kMaxTw + 2 * R + kWarps - 1) / kWarps;
+  constexpr int P32 = kPitch * 32;
+  float* qt = tile;
+  float* ht = tile + QS * P32;
+  const int x0 = tx * p.tw;
+  const int c0 = p.n_id + g * 32, nch = min(32, p.HID - c0);
+  const long long img = (long long)bi * p.H * p.W * p.HID;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int c = c0 + min(lane, nch - 1);
+  const int n_q = p.tw + 2 * R;            // q columns from image x0 - R
+  // ring slots of image rows r > -64
+  auto qslot = [](int r) { return (r + 64 * QS) % QS; };
+  auto hslot = [](int r) { return (r + 64 * HS) % HS; };
+  // q rows qmax+1 .. qmax+m from the staged h rows qmax .. qmax+m+1: q row
+  // r (image column x0-R+j) from h rows r-1 .. r+1, columns j .. j+2 (a
+  // rolling window down each of a thread's columns); 0 outside the image
+  auto q_rows = [&](int qmax, int m) {
+    float wq[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wq[t] = p.dwk[t * p.HID + c];
+    const float bq = p.dwb[c];
+#pragma unroll
+    for (int k = 0; k < kQC; ++k) {
+      const int j = wid + k * kWarps;
+      if (j >= n_q) continue;
+      const int xx = x0 - R + j;
+      const bool col_in = xx >= 0 && xx < p.W;
+      const float* h_col = ht + j * 32 + lane;
+      float* q_col = qt + j * 32 + lane;
+      int hoff = hslot(qmax) * P32, qoff = qslot(qmax + 1) * P32;
+      float win[2][3];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) win[r][dx] = h_col[hoff + dx * 32];
+        hoff += P32;
+        hoff -= hoff >= HS * P32 ? HS * P32 : 0;
+      }
+      for (int i = 0; i < m; ++i) {
+        float nx[3];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) nx[dx] = h_col[hoff + dx * 32];
+        hoff += P32;
+        hoff -= hoff >= HS * P32 ? HS * P32 : 0;
+        // the taps row by row, then the bias: the plain version's order
+        float acc = 0.f;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) acc = fmaf(win[0][dx], wq[dx], acc);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) acc = fmaf(win[1][dx], wq[3 + dx], acc);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) acc = fmaf(nx[dx], wq[6 + dx], acc);
+        const int yy = qmax + 1 + i;
+        q_col[qoff] = col_in && yy >= 0 && yy < p.H ? gelu_as(acc + bq) : 0.f;
+        qoff += P32;
+        qoff -= qoff >= QS * P32 ? QS * P32 : 0;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          win[0][dx] = win[1][dx];
+          win[1][dx] = nx[dx];
+        }
+      }
+    }
+  };
+  // stage h rows h0 .. h0+n-1 (issued, not waited for)
+  auto stage_h = [&](int h0, int n) {
+    stage<V>(ht, kPitch, hslot(h0), HS, p.h + img + c0, n, n_q + 2, h0,
+             x0 - R - 1, p.H, p.W, p.HID, nch);
+  };
+
+  // 1. the first strip's window, q rows y0-R .. y0+6+R, in rounds of at
+  // most kRows q rows (9 h rows, then 2R more)
+  int qmax = ty0 * kRows - R - 1;          // last q row computed
+  int hmax = qmax - 1;                     // last h row staged
+  while (qmax < ty0 * kRows + 6 + R) {
+    const int m = min(kRows, ty0 * kRows + 6 + R - qmax);
+    __syncthreads();   // the h slots about to be written are read no more
+    stage_h(hmax + 1, qmax + m + 1 - hmax);
+    staged();
+    hmax = qmax + m + 1;
+    q_rows(qmax, m);
+    qmax += m;
+  }
+  for (int ty = ty0; ty < ty1; ++ty) {
+    const int y0 = ty * kRows;
+    const bool next = ty + 1 < ty1;
+    __syncthreads();   // the window is complete, its h rows are spent
+    // 2. the next strip's 7 new h rows, in flight during this 7x7 (their
+    // slots held h rows this strip's q rows needed)
+    if (next) stage_h(hmax + 1, kRows);
+
+    // 3. the 7x7 at reach R: thread -> (channel lane, columns wid, wid + 7,
+    // ...); q row s of the window (image row y0-R+s) is read once and added
+    // into the up to K output rows it reaches; output row o is stored when
+    // its last tap row has been added, with q's centre as the residual
+    float w[K * K];
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < K; ++dx)
+        w[dy * K + dx] = p.inck[((dy + 3 - R) * 7 + dx + 3 - R) * p.HID + c];
+    const float bc = p.incb[c];
+    const long long row = (long long)p.W * p.HID;
+    const int off0 = qslot(y0 - R) * P32;
+    for (int col = wid; col < p.tw && x0 + col < p.W; col += kWarps) {
+      float acc[kRows];
+#pragma unroll
+      for (int o = 0; o < kRows; ++o) acc[o] = 0.f;
+      const float* t_col = qt + col * 32 + lane;
+      float* o_col = p.out + img + c + (y0 * p.W + x0 + col) * (long long)p.HID;
+      int off = off0;
+#pragma unroll
+      for (int s = 0; s < QS; ++s) {
+        float x[K];
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx) x[kx] = t_col[off + kx * 32];
+        // q row s reaches output rows s - 2R .. s (tap row s - o)
+#pragma unroll
+        for (int o = 0; o < kRows; ++o) {
+          if (o <= s && s - o < K) {
+#pragma unroll
+            for (int kx = 0; kx < K; ++kx)
+              acc[o] = fmaf(x[kx], w[(s - o) * K + kx], acc[o]);
+          }
+        }
+        if (s >= 2 * R) {
+          // output row o = s - 2R is complete; its residual q is R rows up
+          const int o = s - 2 * R;
+          if (lane < nch && y0 + o < p.H) {
+            const int oc = off - R * P32 + (off < R * P32 ? QS * P32 : 0);
+            o_col[o * row] = t_col[oc + R * 32] + acc[o] + bc;
+          }
+        }
+        off += P32;
+        off -= off >= QS * P32 ? QS * P32 : 0;
+      }
+    }
+    // 4. the next strip's 7 new q rows, into the slots of this window's
+    // first 7 rows
+    if (next) {
+      staged();   // the copies landed; every thread is done with the 7x7
+      hmax += kRows;
+      q_rows(qmax, kRows);
+      qmax += kRows;
+    }
+  }
+}
+
+// The reach a tap group's taps need (1 to 3: the composite's 3x3, 5x5 and
+// 7x7 groups), the same for every thread of the block.
+__device__ __forceinline__ int tap_reach(const Args& p, int c) {
+  bool r3 = false, r2 = false;
+#pragma unroll
+  for (int t = 0; t < 49; ++t) {
+    const int dy = t / 7 - 3, dx = t % 7 - 3;
+    const int d = max(abs(dy), abs(dx));
+    if (d >= 2) {
+      const bool nz = p.inck[t * p.HID + c] != 0.f;
+      if (d == 3) r3 = r3 || nz;
+      else r2 = r2 || nz;
+    }
+  }
+  if (__syncthreads_or(r3)) return 3;
+  return __syncthreads_or(r2) ? 2 : 1;
+}
+
+template <int V>
+__device__ __forceinline__ void tap_block(const Args& p, float* tile,
                                           int blk) {
-  const int S_c = p.tw + 2 * kHalo;        // staged columns
   const int g = blk % p.groups;
   int rest = blk / p.groups;
   const int tx = rest % p.tiles_x;
   rest /= p.tiles_x;
-  const int ty = rest % p.tiles_y;
-  const int bi = rest / p.tiles_y;
-  const int y0 = ty * kRows, x0 = tx * p.tw;
+  const int cy = rest % p.chunks_y;
+  const int bi = rest / p.chunks_y;
+  const int ty0 = cy * p.ts, ty1 = min(ty0 + p.ts, p.tiles_y);
   const int c0 = p.n_id + g * 32;
-  const int nch = min(32, p.HID - c0);
-  const float* q = p.q + (long long)bi * p.H * p.W * p.HID + c0;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  // 1. staging: thread -> (pixel of the tile, V-wide item of its 32
-  // channels); the pixel advances by `step` (dr rows, dc columns) per load
-  {
-    constexpr int ipp = 32 / V;            // items per pixel
-    const int it = tid % ipp;
-    const int step = nt / ipp;
-    const int n_pix = kTR * S_c;
-    int e = tid / ipp;
-    int sr = e / S_c, sc = e - sr * S_c;
-    const int dr = step / S_c, dc = step - dr * S_c;
-    const bool ch_ok = it * V < nch;
-    constexpr int kBatch = staging_batch(V);
-    for (; e < n_pix; ) {
-      float r[kBatch][V];
-      int dst[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int yy = y0 + sr - kHalo, xx = x0 + sc - kHalo;
-        const bool in = e < n_pix && ch_ok && yy >= 0 && yy < p.H &&
-                        xx >= 0 && xx < p.W;
-        if (in) {
-          load_v<V>(r[j], q + ((long long)yy * p.W + xx) * p.HID + it * V);
-        } else {
-#pragma unroll
-          for (int v = 0; v < V; ++v) r[j][v] = 0.f;
-        }
-        dst[j] = e < n_pix ? (sr * kPitch + sc) * 32 + it * V : -1;
-        e += step;
-        sr += dr;
-        sc += dc;
-        if (sc >= S_c) sc -= S_c, ++sr;
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        if (dst[j] >= 0) store_v<V>(tile + dst[j], r[j]);
-    }
-  }
-  __syncthreads();
-
-  // 2. the 7x7: thread -> (channel lane, columns wid, wid + nw, ...)
-  const int lane = tid & 31, wid = tid >> 5, nw = nt >> 5;
-  const int c = c0 + min(lane, nch - 1);
-  float w[49];
-#pragma unroll
-  for (int t = 0; t < 49; ++t) w[t] = p.taps[t * p.HID + c];
-  const float bc = p.bias[c];
-  float* out = p.out + (long long)bi * p.H * p.W * p.HID + c;
-  for (int col = wid; col < p.tw && x0 + col < p.W; col += nw) {
-    float acc[kRows];
-#pragma unroll
-    for (int o = 0; o < kRows; ++o) acc[o] = 0.f;
-    const float* t_col = tile + col * 32 + lane;
-#pragma unroll
-    for (int s = 0; s < kTR; ++s) {
-      float x[7];
-#pragma unroll
-      for (int kx = 0; kx < 7; ++kx) x[kx] = t_col[(s * kPitch + kx) * 32];
-      // input row s reaches output rows s - 6 .. s (tap row s - o)
-#pragma unroll
-      for (int o = 0; o < kRows; ++o) {
-        if (o <= s && s - o < 7) {
-#pragma unroll
-          for (int kx = 0; kx < 7; ++kx)
-            acc[o] = fmaf(x[kx], w[(s - o) * 7 + kx], acc[o]);
-        }
-      }
-    }
-    if (lane < nch) {
-#pragma unroll
-      for (int o = 0; o < kRows; ++o) {
-        const int y = y0 + o;
-        if (y < p.H) {
-          const float centre = t_col[((o + kHalo) * kPitch + kHalo) * 32];
-          out[((long long)y * p.W + x0 + col) * p.HID] = centre + acc[o] + bc;
-        }
-      }
-    }
-  }
+  const int c = c0 + min((int)(threadIdx.x & 31), min(32, p.HID - c0) - 1);
+  const int R = tap_reach(p, c);
+  if (R == 3) tap_strips<V, 3>(p, tile, g, tx, ty0, ty1, bi);
+  else if (R == 2) tap_strips<V, 2>(p, tile, g, tx, ty0, ty1, bi);
+  else tap_strips<V, 1>(p, tile, g, tx, ty0, ty1, bi);
 }
 
-// An identity block: 2q + b over channels [0, n_id) of pixels
-// blk * id_pix .. +id_pix, as (pixel, V-wide item) pairs advanced by
-// blockDim pairs at a time. V needs to divide HID, not n_id: a pixel's last
-// item may reach past n_id (into its tap channels), and stores only the
-// channels below n_id.
+// An identity block: 2q + incb over channels c0 .. c0+31 (those below
+// n_id) of up to kStrips strips of kRows rows by iw columns, walked top to
+// bottom through a ring of 16 h rows (h row r in slot r mod 16) of iw+2
+// pixels: a strip reads its 9 rows while the next strip's 7 new rows are
+// in flight into the slots of rows already spent. A thread (one channel,
+// columns wid, wid+7, ...) walks a strip's 9 rows, adding each row's 3
+// values into the up to 3 output rows they reach.
 template <int V>
-__device__ __forceinline__ void identity_block(const IncArgs& p, int blk) {
-  const long long px0 = (long long)blk * p.id_pix;
-  const int n_pix = (int)min((long long)p.id_pix, p.M - px0);
-  int pix = threadIdx.x / p.id_items;
-  int it = threadIdx.x - pix * p.id_items;
-  const float* q = p.q + px0 * p.HID;
-  float* out = p.out + px0 * p.HID;
-  while (pix < n_pix) {
-    float r[kIdLoads][V];
-    int off[kIdLoads], ch[kIdLoads];
+__device__ __forceinline__ void identity_block(const Args& p, float* tile,
+                                               int blk) {
+  constexpr int IS = 16;                   // ring slots
+  const int g = blk % p.igroups;
+  int rest = blk / p.igroups;
+  const int tx = rest % p.itiles_x;
+  rest /= p.itiles_x;
+  const int cy = rest % p.ichunks;
+  const int bi = rest / p.ichunks;
+  const int ty0 = cy * p.ts, ty1 = min(ty0 + p.ts, p.tiles_y);
+  const int x0 = tx * p.iw;
+  const int c0 = g * 32;
+  const int nch = min(32, p.HID - c0);
+  const int pitch = p.iw + 2;
+  const int rs = pitch * 32;               // a ring row's floats
+  const long long img = (long long)bi * p.H * p.W * p.HID;
+  auto stage_h = [&](int h0, int n) {
+    stage<V>(tile, pitch, (h0 + IS) % IS, IS, p.h + img + c0, n, pitch, h0,
+             x0 - 1, p.H, p.W, p.HID, nch);
+  };
+  stage_h(ty0 * kRows - 1, kRows + 2);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int c = c0 + min(lane, nch - 1);
+  float w[9];
 #pragma unroll
-    for (int j = 0; j < kIdLoads; ++j) {
-      ch[j] = it * V;
-      off[j] = pix < n_pix ? pix * p.HID + ch[j] : -1;
-      if (off[j] >= 0) load_v<V>(r[j], q + off[j]);
-      pix += p.id_dq;
-      it += p.id_dr;
-      if (it >= p.id_items) it -= p.id_items, ++pix;
-    }
+  for (int t = 0; t < 9; ++t) w[t] = p.dwk[t * p.HID + c];
+  const float bc = p.dwb[c], ib = p.incb[c];
+  const bool store = c0 + lane < p.n_id;
+  const long long row = (long long)p.W * p.HID;
+  for (int ty = ty0; ty < ty1; ++ty) {
+    const int y0 = ty * kRows;
+    staged();   // this strip's rows landed; the last strip's reads are done
+    if (ty + 1 < ty1) stage_h(y0 + kRows + 1, kRows);
+    const int off0 = ((y0 - 1 + IS) % IS) * rs;
+    for (int col = wid; col < p.iw && x0 + col < p.W; col += kWarps) {
+      // the taps row by row, then the bias: the plain version's order
+      float acc[kRows];
 #pragma unroll
-    for (int j = 0; j < kIdLoads; ++j) {
-      if (off[j] >= 0) {
-        float bv[V];
-        load_v<V>(bv, p.bias + ch[j]);
+      for (int o = 0; o < kRows; ++o) acc[o] = 0.f;
+      const float* t_col = tile + col * 32 + lane;
+      int off = off0;
 #pragma unroll
-        for (int v = 0; v < V; ++v) r[j][v] = fmaf(2.f, r[j][v], bv[v]);
-        if (ch[j] + V <= p.n_id) {
-          store_v<V>(out + off[j], r[j]);
-        } else {
+      for (int s = 0; s < kRows + 2; ++s) {
+        float x[3];
 #pragma unroll
-          for (int v = 0; v < V; ++v)
-            if (ch[j] + v < p.n_id) out[off[j] + v] = r[j][v];
+        for (int kx = 0; kx < 3; ++kx) x[kx] = t_col[off + kx * 32];
+        off += rs;
+        off -= off >= IS * rs ? IS * rs : 0;
+        // h row s reaches output rows s - 2 .. s (tap row s - o)
+#pragma unroll
+        for (int o = 0; o < kRows; ++o) {
+          if (o <= s && s - o < 3) {
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+              acc[o] = fmaf(x[kx], w[(s - o) * 3 + kx], acc[o]);
+          }
         }
+      }
+      if (store) {
+        float* o_col = p.out + img + c +
+                       (y0 * p.W + x0 + col) * (long long)p.HID;
+#pragma unroll
+        for (int o = 0; o < kRows; ++o)
+          if (y0 + o < p.H)
+            o_col[o * row] = fmaf(2.f, gelu_as(acc[o] + bc), ib);
       }
     }
   }
@@ -298,88 +447,79 @@ __device__ __forceinline__ void identity_block(const IncArgs& p, int blk) {
 // Tap and identity blocks interleave in proportion (block j is a tap block
 // when floor((j + 1) T / N) > floor(j T / N), T tap blocks of N), so the
 // compute-heavy tap blocks run beside the streaming identity blocks.
-template <int V>
-__global__ void __launch_bounds__(32 * kMaxWarps, 2)
-inception7_kernel(IncArgs p) {
+template <int V, int VI>
+__global__ void __launch_bounds__(kThreads, 2)
+dw3_inception7_kernel(Args p) {
   extern __shared__ float tile[];
   const long long j = blockIdx.x;
   const long long t0 = j * p.tap_blocks / p.blocks;
   const long long t1 = (j + 1) * p.tap_blocks / p.blocks;
   if (t1 > t0) tap_block<V>(p, tile, (int)t0);
-  else if (p.id_v == 4) identity_block<4>(p, (int)(j - t0));
-  else if (p.id_v == 2) identity_block<2>(p, (int)(j - t0));
-  else identity_block<1>(p, (int)(j - t0));
+  else identity_block<VI>(p, tile, (int)(j - t0));
 }
 
-template <int V>
-cudaError_t launch_inception7(const IncArgs& p, int blocks, int threads,
-                              size_t smem, cudaStream_t s) {
+template <int V, int VI>
+cudaError_t launch(const Args& p, int blocks, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      inception7_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      dw3_inception7_kernel<V, VI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  // all of the SM's shared memory, for two blocks of 112.6 KB
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dw3_inception7_kernel<V, VI>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
   if (err != cudaSuccess) return err;
-  inception7_kernel<V><<<blocks, threads, smem, s>>>(p);
+  dw3_inception7_kernel<V, VI><<<blocks, kThreads, kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ceigm
 
-extern "C" int cffn_dw3_gelu(const float* h, const float* dwk,
-                             const float* dwb, float* q, int B, int H, int W,
-                             int HID, cudaStream_t s) {
-  using namespace ceigm;
-  if (B <= 0 || H <= 0 || W <= 0 || HID <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(((H + kTile - 1) / kTile) * ((W + kTile - 1) / kTile),
-                  (HID + 31) / 32, B);
-  dw3_gelu_kernel<<<grid, 256, 0, s>>>(h, dwk, dwb, q, H, W, HID);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cffn_inception7(const float* q, const float* inck,
-                               const float* incb, float* out, int B, int H,
-                               int W, int HID, int n_id, cudaStream_t s) {
+extern "C" int cffn_dw3_inception7(const float* h, const float* dwk,
+                                   const float* dwb, const float* inck,
+                                   const float* incb, float* out, int B,
+                                   int H, int W, int HID, int n_id,
+                                   cudaStream_t s) {
   using namespace ceigm;
   if (B <= 0 || H <= 0 || W <= 0 || HID <= 0 || n_id < 0 || n_id > HID)
     return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * H * W;
-  // pixel offsets within a block's range, and pixel indices, are ints
-  if ((long long)H * W * HID > 0x7fffffffLL || M > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  IncArgs p{};
-  p.q = q; p.taps = inck; p.bias = incb; p.out = out;
-  p.H = H; p.W = W; p.HID = HID; p.n_id = n_id; p.M = M;
-  // tap blocks: columns in tiles of at most kMaxTw of equal width, rows in
-  // kRows strips, channels in groups of 32
+  // pixel offsets within an image are ints
+  if ((long long)H * W * HID > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  Args p{};
+  p.h = h; p.dwk = dwk; p.dwb = dwb; p.inck = inck; p.incb = incb;
+  p.out = out;
+  p.H = H; p.W = W; p.HID = HID; p.n_id = n_id;
+  p.tiles_y = (H + kRows - 1) / kRows;
+  // tap blocks: columns in tiles of at most kMaxTw of equal width, channels
+  // in groups of 32, each walking up to kStrips strips
   p.tiles_x = (W + kMaxTw - 1) / kMaxTw;
   p.tw = (W + p.tiles_x - 1) / p.tiles_x;
-  p.tiles_y = (H + kRows - 1) / kRows;
   p.groups = (HID - n_id + 31) / 32;
-  const long long tap_blocks = (long long)B * p.tiles_y * p.tiles_x * p.groups;
-  // as few warps as give each the same number of columns, at most
-  // kMaxWarps
-  const int per = (p.tw + kMaxWarps - 1) / kMaxWarps;
-  const int nw = (p.tw + per - 1) / per;
-  const int threads = 32 * nw;
-  // tap blocks' staging and identity blocks' items: the widest access
-  // their channel offsets and pointers allow
-  const int V = vec_width({n_id, HID}, {q});
-  p.id_v = vec_width({HID}, {q, incb, out});
-  // identity blocks: ~kIdLoads items per thread
-  p.id_items = (n_id + p.id_v - 1) / p.id_v;
-  long long id_blocks = 0;
-  if (p.id_items > 0) {
-    p.id_pix = (threads * kIdLoads + p.id_items - 1) / p.id_items;
-    p.id_dq = threads / p.id_items;
-    p.id_dr = threads - p.id_dq * p.id_items;
-    id_blocks = (M + p.id_pix - 1) / p.id_pix;
-  }
+  p.ts = min(p.tiles_y, kStrips);
+  p.chunks_y = (p.tiles_y + p.ts - 1) / p.ts;
+  const long long tap_blocks = (long long)B * p.tiles_x * p.groups *
+                               p.chunks_y;
+  // identity blocks: tiles of at most kMaxIw columns, groups of 32
+  // channels, ts strips
+  p.itiles_x = (W + kMaxIw - 1) / kMaxIw;
+  p.iw = (W + p.itiles_x - 1) / p.itiles_x;
+  p.igroups = (n_id + 31) / 32;
+  p.ichunks = p.chunks_y;
+  const long long id_blocks = (long long)B * p.ichunks * p.itiles_x *
+                              p.igroups;
   if (tap_blocks + id_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.tap_blocks = tap_blocks;
   p.blocks = tap_blocks + id_blocks;
+  // the widest item the channel offsets and the pointer allow: tap groups
+  // start at n_id + 32 g, identity groups at 32 g
+  const int V = vec_width({n_id, HID}, {h});
+  const int VI = vec_width({HID}, {h});
   const int blocks = (int)p.blocks;
-  const size_t smem = (size_t)kTR * kPitch * 32 * sizeof(float);
-  if (V == 4) return (int)launch_inception7<4>(p, blocks, threads, smem, s);
-  if (V == 2) return (int)launch_inception7<2>(p, blocks, threads, smem, s);
-  return (int)launch_inception7<1>(p, blocks, threads, smem, s);
+  if (V == 4) return (int)launch<4, 4>(p, blocks, s);
+  if (V == 2) return VI == 4 ? (int)launch<2, 4>(p, blocks, s)
+                             : (int)launch<2, 2>(p, blocks, s);
+  if (VI == 4) return (int)launch<1, 4>(p, blocks, s);
+  if (VI == 2) return (int)launch<1, 2>(p, blocks, s);
+  return (int)launch<1, 1>(p, blocks, s);
 }

@@ -34,9 +34,12 @@ and through this checkout's wrapper, beside ``F.conv2d`` /
 the four tiny_0230s SS2D shapes of a b128 bf16 legacy forward with a
 stride-0 u; and K1 / K14 (``csrc/quad_scan_ln.cu`` ``quad_scan_ln`` and
 ``quad_scan_ln_q8``) at the four gm_tiny quad-block shapes of a b128 bf16
-forward in the model's strided layout; and K3's inception stencil
-(``cffn_inception7``) at the three b128 CustomFfn shapes beside
-``F.conv2d``. These are device times: the queue is held behind a spin
+forward in the model's strided layout; and K3's stencils between its
+GEMMs, dw3+GELU and the inception 7x7 (``cffn_dw3_inception7``, or a
+base's ``cffn_dw3_gelu`` followed by its ``cffn_inception7``, timed as one
+case) at the three b128 CustomFfn shapes beside ``F.conv2d`` of the 7x7
+alone; and K5 (``lgag_gate``) at the three b128 bf16 shapes of the
+decoder's eval gates. These are device times: the queue is held behind a spin
 kernel while the timed calls are enqueued, so host time per call does not
 enter. ``--kernels`` picks groups of cases (all
 by default). Prints the card's name and power limit first.
@@ -54,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ceigm_unet_tpu_torch.ops import (_build, dwconv, ffn, grid_sample,
-                                      quad_scan)
+                                      quad_scan, tapconv)
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -629,31 +632,50 @@ def quad_scan_ln_cases(libs, gpu, gen):
                           if k == kernel), flush=True)
 
 
-# (side, HID, identity channels, calls per b128 forward): the inception
-# stencil of the 7 decoder CustomFfns (3 at 14x14, 2 at 28x28, 2 at 56x56)
+# (side, HID, identity channels, calls per b128 forward): the dw3+GELU and
+# inception stencils of the 7 decoder CustomFfns (3 at 14x14, 2 at 28x28, 2
+# at 56x56)
 STENCIL = [(14, 1392, 870, 3), (28, 512, 320, 2), (56, 256, 160, 2)]
 
 
-def _inception7(lib, q, taps, bias, S, n_id):
-    M, HID = q.shape
-    out = torch.empty_like(q)
-    p = _build.ptr
-    err = lib.cffn_inception7(p(q), p(taps), p(bias), p(out), M // (S * S),
-                              S, S, HID, n_id, _stream())
+def _stencil(lib, h, dwk, dwb, taps, bias, S, n_id):
+    """gelu(dw3(h) + dwb) followed by the inception stencil, through
+    ``lib``'s fused ``cffn_dw3_inception7``, or, in a library that predates
+    it, its ``cffn_dw3_gelu`` and then its ``cffn_inception7`` (the q
+    between them allocated and written as that library's wrapper did)."""
+    M, HID = h.shape
+    out = torch.empty_like(h)
+    p, B = _build.ptr, M // (S * S)
+    if hasattr(lib, "cffn_dw3_inception7"):
+        err = lib.cffn_dw3_inception7(p(h), p(dwk), p(dwb), p(taps), p(bias),
+                                      p(out), B, S, S, HID, n_id, _stream())
+    else:
+        _P, _I = ctypes.c_void_p, ctypes.c_int
+        lib.cffn_dw3_gelu.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.cffn_inception7.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        q = torch.empty_like(h)
+        err = (lib.cffn_dw3_gelu(p(h), p(dwk), p(dwb), p(q), B, S, S, HID,
+                                 _stream())
+               or lib.cffn_inception7(p(q), p(taps), p(bias), p(out), B, S,
+                                      S, HID, n_id, _stream()))
     if err:
-        raise RuntimeError(f"cffn_inception7 failed to launch: cudaError_t "
+        raise RuntimeError(f"CustomFfn stencil failed to launch: cudaError_t "
                            f"{err}")
     return out
 
 
 def stencil_cases(libs, gpu, gen):
-    """K3's inception stencil (``cffn_inception7``) at the three b128
-    CustomFfn shapes (fp32 hidden, the composite of random 3x3/5x5/7x7
-    taps), each entry point called directly and through this checkout's
-    wrapper, held against inception7_ref at the fp32 tolerance (rtol 1e-4,
-    atol 1e-4 * max; TF32 off), then timed in turns as device time beside
-    F.conv2d (groups=HID, on the channels-last NCHW view of the hidden) and
-    the bound (chip_smoke.py phase 3's count)."""
+    """K3's stencils between the GEMMs, q = gelu(dw3(h) + dwb) and then q +
+    composite7x7(q) + incb, at the three b128 CustomFfn shapes (fp32
+    hidden, random dw3 taps, the composite of random 3x3/5x5/7x7 taps):
+    each library's entry points called directly (``_stencil``: the fused
+    kernel, or the two of a library that predates it, timed as one case)
+    and this checkout's wrapper ``dw3_gelu_inception7``, held against
+    dw3_gelu_inception7_ref at the fp32 tolerance (rtol 1e-4, atol 1e-4 *
+    max; TF32 off), then timed in turns as device time beside F.conv2d of
+    the 7x7 alone (groups=HID, on the channels-last NCHW view of q) and
+    the bound: h read once and the output written once, plus the taps and
+    biases (chip_smoke.py phase 3's count)."""
     dev = torch.device("cuda")
     rnd = lambda shape, scale=1.0: torch.randn(
         shape, generator=gen, device=dev) * scale
@@ -665,44 +687,112 @@ def stencil_cases(libs, gpu, gen):
             rnd((7, 7, 1, g), 0.05), rnd((g,), 0.1), rnd((g,), 0.1),
             rnd((g,), 0.1), torch.float32)
         taps = k.reshape(49, HID).contiguous()
-        q = rnd((B * S * S, HID))
-        plain = ffn.inception7_ref(q, k, bias, S, S, n_id)
-        runs = {n: (lambda lib=lib: _inception7(lib, q, taps, bias, S, n_id))
+        dwk, dwb = rnd((3, 3, 1, HID), 0.2), rnd((HID,), 0.1)
+        dw9 = dwk.reshape(9, HID).contiguous()
+        h = rnd((B * S * S, HID))
+        plain = ffn.dw3_gelu_inception7_ref(h, dwk, dwb, k, bias, S, S, n_id)
+        runs = {n: (lambda lib=lib: _stencil(lib, h, dw9, dwb, taps, bias, S,
+                                             n_id))
                 for n, lib in libs.items()}
-        runs["this op"] = lambda: ffn.inception7(q, k, bias, S, S, n_id)
+        order = ["base", "this", "this", "base"]
+        if hasattr(libs["this"], "cffn_dw3_inception7"):
+            runs["this op"] = lambda: ffn.dw3_gelu_inception7(
+                h, dwk, dwb, k, bias, S, S, n_id)
+            order = ["base", "this", "this op", "this op", "this", "base"]
         scale = plain.abs().max().item()
         for n, fn in runs.items():
             err = (fn() - plain).abs()
             if bool((err > 1e-4 * scale + 1e-4 * plain.abs()).any()):
-                raise SystemExit(f"{n} cffn_inception7 {S}x{S} HID{HID}: "
+                raise SystemExit(f"{n} CustomFfn stencil {S}x{S} HID{HID}: "
                                  f"max abs err {err.max().item():.3e}")
         del plain
         ms = {n: [] for n in runs}
-        for n in ["base", "this", "this op", "this op", "this", "base"]:
+        for n in order:
             ms[n].append(device_time(runs[n]))
         med = {n: statistics.median(v) for n, v in ms.items()}
-        # q + conv(q) is one depthwise conv whose centre tap is + 1
+        # the 7x7 alone: q + conv(q) is one depthwise conv whose centre tap
+        # is + 1, on q computed outside the timing
         k_id = k.clone()
         k_id[3, 3] += 1.0
         w = k_id.permute(3, 2, 0, 1).contiguous()
-        q_nchw = q.view(B, S, S, HID).permute(0, 3, 1, 2)
-        med["F.conv2d"] = device_time(
+        q_nchw = ffn.dw3_gelu_ref(h, dwk, dwb, S, S).view(
+            B, S, S, HID).permute(0, 3, 1, 2)
+        med["F.conv2d 7x7 alone"] = device_time(
             lambda: F.conv2d(q_nchw, w, bias, padding=3, groups=HID))
-        med["bound"] = (8 * q.numel() + 200 * HID) / HBM_BPS * 1e3
+        med["bound"] = (8 * h.numel() + 240 * HID) / HBM_BPS * 1e3
         for n, v in med.items():
             totals[n] = totals.get(n, 0.0) + calls * v
-        print(f"cffn_inception7 [{S}x{S} HID{HID} n_id {n_id}] x{calls}/"
+        print(f"CustomFfn stencil [{S}x{S} HID{HID} n_id {n_id}] x{calls}/"
               "forward b128 fp32, device ms: "
               + ", ".join(f"{n} {v:.4f}" for n, v in med.items())
               + f", this / bound {med['this'] / med['bound']:.2f} | {gpu}",
               flush=True)
-        del q, q_nchw, runs
-    print("cffn_inception7 per b128 forward, device ms: "
+        del h, q_nchw, runs
+    print("CustomFfn stencil per b128 forward, device ms: "
+          + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()), flush=True)
+
+
+# (side, C, calls per b128 forward): the eval LGAG gates of the decoder
+LGAG = [(14, 348, 1), (28, 128, 1), (56, 64, 1)]
+
+
+def _lgag(lib, g, x, prm):
+    B, H, W, C = g.shape
+    out = torch.empty_like(x)
+    p = _build.ptr
+    err = lib.lgag_gate(p(g), p(x), *[p(t) for t in prm], p(out), B, H, W, C,
+                        _build.dtype_code(x), _stream())
+    if err:
+        raise RuntimeError(f"lgag_gate failed to launch: cudaError_t {err}")
+    return out
+
+
+def lgag_cases(libs, gpu, gen):
+    """K5 (``lgag_gate``) at the three b128 bf16 shapes of the decoder's
+    gates, each library's entry point called directly, held against
+    lgag_gate_ref at the bf16 tolerance (rtol 3e-2, atol 5e-2 * max), then
+    timed in turns as device time beside the bound: g and x read once, the
+    output written once, and the folded parameters (chip_smoke.py phase
+    3's count)."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    rnd = lambda shape, scale=1.0: torch.randn(
+        shape, generator=gen, device=dev) * scale
+    totals = {}
+    for S, C, calls in LGAG:
+        B, C2 = 128, C // 2
+        g, x = rnd((B, S, S, C)).to(bf16), rnd((B, S, S, C)).to(bf16)
+        prm = [rnd((5, 5, 2, C2), 0.2), 1 + rnd((C2,), 0.1), rnd((C2,), 0.1),
+               rnd((C2,), 0.3), rnd((3,), 0.5)]
+        plain = tapconv.lgag_gate_ref(g, x, *prm).float()
+        scale = plain.abs().max().item()
+        errs = {}
+        for n, lib in libs.items():
+            err = (_lgag(lib, g, x, prm).float() - plain).abs()
+            if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                raise SystemExit(f"{n} lgag_gate {S}x{S} C{C}: max abs err "
+                                 f"{err.max().item():.3e}")
+            errs[n] = err.max().item()
+        del plain
+        ms = {n: [] for n in libs}
+        for n in ["base", "this", "this", "base"]:
+            ms[n].append(device_time(lambda: _lgag(libs[n], g, x, prm)))
+        med = {n: statistics.median(v) for n, v in ms.items()}
+        med["bound"] = (3 * 2 * g.numel() + 4 * 53 * C2) / HBM_BPS * 1e3
+        for n, v in med.items():
+            totals[n] = totals.get(n, 0.0) + calls * v
+        print(f"lgag_gate [{S}x{S} C{C}] x{calls}/forward b128 bf16, device "
+              "ms: " + ", ".join(f"{n} {v:.4f}" for n, v in med.items())
+              + f", this / bound {med['this'] / med['bound']:.2f}, max abs "
+              + ", ".join(f"err {n} {v:.3e}" for n, v in errs.items())
+              + f" (max|plain| {scale:.3e}) | {gpu}", flush=True)
+        del g, x
+    print("lgag_gate per b128 bf16 forward, device ms: "
           + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()), flush=True)
 
 
 KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir",
-           "quad_scan_ln", "cffn_stencil")
+           "quad_scan_ln", "cffn_stencil", "lgag")
 
 
 def main() -> int:
@@ -725,7 +815,8 @@ def main() -> int:
     print(f"device: {gpu}", flush=True)
     base = args.base.resolve()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"base": _build.load(_build.build(base, Path(tmp))),
+        libs = {"base": _build.load(_build.build(base, Path(tmp)),
+                                    strict=False),
                 "this": _build.library()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "scan2d" in args.kernels:
@@ -748,6 +839,8 @@ def main() -> int:
         quad_scan_ln_cases(libs, gpu, gen)
     if "cffn_stencil" in args.kernels:
         stencil_cases(libs, gpu, gen)
+    if "lgag" in args.kernels:
+        lgag_cases(libs, gpu, gen)
     return 0
 
 

@@ -39,8 +39,7 @@ SIGNATURES = {
     "quad_scan_ln": [_P] * 10 + [_L] * 14 + [_I] * 10 + [_P],
     "quad_scan_ln_q8": [_P] * 12 + [_L] * 14 + [_I] * 10 + [_P],
     "cffn_gemm": [_P] * 4 + [_I] * 6 + [_P],
-    "cffn_dw3_gelu": [_P] * 4 + [_I] * 4 + [_P],
-    "cffn_inception7": [_P] * 4 + [_I] * 5 + [_P],
+    "cffn_dw3_inception7": [_P] * 6 + [_I] * 5 + [_P],
     "dysample_grid_sample": [_P] * 3 + [_I] * 8 + [_P],
     "grid_sample_bilinear": [_P] * 3 + [_I] * 7 + [_P],
     "dwconv3x3": [_P] * 4 + [_L] * 3 + [_I] * 5 + [_P],
@@ -118,10 +117,14 @@ def _check(cmd, returncode: int, err: str) -> None:
             returncode, " ".join(cmd), err[-8000:]))
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare its entry points' signatures."""
+def load(path: Path, strict: bool = True) -> ctypes.CDLL:
+    """Load a built library and declare its entry points' signatures. With
+    ``strict`` False, entry points the library lacks (another checkout's,
+    built from an older ``csrc/``) are left out instead of raising."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if not strict and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -4,10 +4,10 @@ Counterpart of ``ceigm_unet_tpu/ops/ffn_pallas.py``: :func:`custom_ffn_fused`
 keeps the argument layout of the JAX entry point (flax kernel layouts:
 w1 (C, HID), dwk (3, 3, 1, HID), inck (7, 7, 1, HID), w2 (HID, C)). For
 CUDA tensors it runs the kernels of ``csrc/cffn_gemm.cu`` (:func:`ffn_gemm`,
-fc1 and fc2) and ``csrc/cffn.cu`` (:func:`dw3_gelu`, :func:`inception7`),
-with an fp32 hidden; for CPU tensors it runs :func:`custom_ffn_fused_ref`,
-the port of ``_cffn_ref``. Each of the three wrappers also has its own plain
-version.
+fc1 and fc2) and ``csrc/cffn.cu`` (:func:`dw3_gelu_inception7`, the
+depthwise 3x3, GELU and inception stencil between them), with an fp32
+hidden; for CPU tensors it runs :func:`custom_ffn_fused_ref`, the port of
+``_cffn_ref``. Each of the two wrappers also has its own plain version.
 """
 from __future__ import annotations
 
@@ -120,63 +120,57 @@ def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
 
 
 def dw3_gelu_ref(h, dwk, dwb, H: int, W: int):
-    """Plain version of :func:`dw3_gelu`."""
+    """gelu(depthwise3x3(h) + dwb) of the fp32 hidden h (B*H*W, HID); dwk
+    (3, 3, 1, HID). The first half of :func:`dw3_gelu_inception7_ref`."""
     B = h.shape[0] // (H * W)
     q = gelu(depthwise_nhwc(h.reshape(B, H, W, -1), dwk.float()) + dwb)
     return q.reshape(h.shape)
 
 
-def dw3_gelu(h, dwk, dwb, H: int, W: int):
-    """gelu(depthwise3x3(h) + dwb) of the fp32 hidden h (B*H*W, HID);
-    dwk (3, 3, 1, HID)."""
-    M, HID = h.shape
-    if h.dtype != torch.float32 or M % (H * W) or dwk.numel() != 9 * HID:
-        raise ValueError(f"dw3_gelu: h {tuple(h.shape)} {h.dtype} H*W "
-                         f"{H * W} dwk {tuple(dwk.shape)}")
-    if h.device.type == "cpu":
-        return dw3_gelu_ref(h, dwk, dwb, H, W)
-    if h.device.type != "cuda":
-        raise ValueError(f"dw3_gelu: no kernel for {h.device}")
-    _build.check_no_grad("dw3_gelu", h, dwk, dwb)
-    hc = h.contiguous()
-    kf, bf = [t.to(device=h.device, dtype=torch.float32).reshape(
-        -1, HID).contiguous() for t in (dwk, dwb)]
-    _build.check_cuda(hc, kf, bf)
-    q = torch.empty_like(hc)
-    p = _build.ptr
-    _build.launch("cffn_dw3_gelu", p(hc), p(kf), p(bf), p(q), M // (H * W),
-                  H, W, HID)
-    return q
-
-
 def inception7_ref(q, inck, incb, H: int, W: int, n_id: int = 0):
-    """Plain version of :func:`inception7` (``n_id`` only selects a kernel
-    shortcut)."""
+    """q + composite7x7(q) + incb of the fp32 hidden q (B*H*W, HID); inck
+    (7, 7, 1, HID). The second half of :func:`dw3_gelu_inception7_ref`
+    (``n_id`` only selects a kernel shortcut)."""
     B = q.shape[0] // (H * W)
     q4 = q.reshape(B, H, W, -1)
     return (q4 + depthwise_nhwc(q4, inck.float()) + incb).reshape(q.shape)
 
 
-def inception7(q, inck, incb, H: int, W: int, n_id: int = 0):
-    """q + composite7x7(q) + incb of the fp32 hidden q (B*H*W, HID); the
-    first ``n_id`` channels are the composite's identity channels."""
-    M, HID = q.shape
-    if q.dtype != torch.float32 or M % (H * W) or inck.numel() != 49 * HID:
-        raise ValueError(f"inception7: q {tuple(q.shape)} {q.dtype} H*W "
-                         f"{H * W} inck {tuple(inck.shape)}")
-    if q.device.type == "cpu":
-        return inception7_ref(q, inck, incb, H, W, n_id)
-    if q.device.type != "cuda":
-        raise ValueError(f"inception7: no kernel for {q.device}")
-    _build.check_no_grad("inception7", q, inck, incb)
-    qc = q.contiguous()
-    kf, bf = [t.to(device=q.device, dtype=torch.float32).reshape(
-        -1, HID).contiguous() for t in (inck, incb)]
-    _build.check_cuda(qc, kf, bf)
-    out = torch.empty_like(qc)
+def dw3_gelu_inception7_ref(h, dwk, dwb, inck, incb, H: int, W: int,
+                            n_id: int = 0):
+    """Plain version of :func:`dw3_gelu_inception7`: :func:`inception7_ref`
+    of :func:`dw3_gelu_ref`."""
+    return inception7_ref(dw3_gelu_ref(h, dwk, dwb, H, W), inck, incb, H, W,
+                          n_id)
+
+
+def dw3_gelu_inception7(h, dwk, dwb, inck, incb, H: int, W: int,
+                        n_id: int = 0):
+    """q + composite7x7(q) + incb with q = gelu(depthwise3x3(h) + dwb), of
+    the fp32 hidden h (B*H*W, HID) that fc1 writes; dwk (3, 3, 1, HID),
+    inck (7, 7, 1, HID). The first ``n_id`` channels are the composite's
+    identity channels. On a card one kernel, which keeps q out of device
+    memory."""
+    M, HID = h.shape
+    if (h.dtype != torch.float32 or M % (H * W) or dwk.numel() != 9 * HID
+            or inck.numel() != 49 * HID or dwb.numel() != HID
+            or incb.numel() != HID or not 0 <= n_id <= HID):
+        raise ValueError(f"dw3_gelu_inception7: h {tuple(h.shape)} {h.dtype} "
+                         f"H*W {H * W} dwk {tuple(dwk.shape)} inck "
+                         f"{tuple(inck.shape)} n_id {n_id}")
+    if h.device.type == "cpu":
+        return dw3_gelu_inception7_ref(h, dwk, dwb, inck, incb, H, W, n_id)
+    if h.device.type != "cuda":
+        raise ValueError(f"dw3_gelu_inception7: no kernel for {h.device}")
+    _build.check_no_grad("dw3_gelu_inception7", h, dwk, dwb, inck, incb)
+    hc = h.contiguous()
+    prm = [t.to(device=h.device, dtype=torch.float32).reshape(
+        -1, HID).contiguous() for t in (dwk, dwb, inck, incb)]
+    _build.check_cuda(hc, *prm)
+    out = torch.empty_like(hc)
     p = _build.ptr
-    _build.launch("cffn_inception7", p(qc), p(kf), p(bf), p(out),
-                  M // (H * W), H, W, HID, n_id)
+    _build.launch("cffn_dw3_inception7", p(hc), *[p(t) for t in prm],
+                  p(out), M // (H * W), H, W, HID, n_id)
     return out
 
 
@@ -204,8 +198,8 @@ class CustomFfnFused(torch.autograd.Function):
         HID = w1.shape[1]
         dt = x.dtype
         h = ffn_gemm(x.reshape(B * L, C), w1.to(dt), b1, torch.float32)
-        q = inception7(dw3_gelu(h, dwk, dwb, H, W), inck, incb, H, W,
-                       HID - n_tap if n_tap else 0)
+        q = dw3_gelu_inception7(h, dwk, dwb, inck, incb, H, W,
+                                HID - n_tap if n_tap else 0)
         return ffn_gemm(q, w2.to(dt), b2, dt).view(B, L, C)
 
     @staticmethod
@@ -220,8 +214,8 @@ def custom_ffn_fused(x, w1, b1, dwk, dwb, inck, incb, w2, b2, H: int,
     """x (B, H*W, C) -> (B, H*W, C). ``n_tap``: number of non-identity
     channels of the composite (3 * HID/8, the tail of the hidden); the
     kernel runs the 49 taps only there. 0 taps every channel. On a card:
-    :func:`ffn_gemm` -> :func:`dw3_gelu` -> :func:`inception7` ->
-    :func:`ffn_gemm`, with the hidden in fp32."""
+    :func:`ffn_gemm` -> :func:`dw3_gelu_inception7` -> :func:`ffn_gemm`,
+    with the hidden in fp32."""
     B, L, C = x.shape
     HID = w1.shape[1]
     if L != H * W or tuple(w1.shape) != (C, HID) \

@@ -61,7 +61,11 @@ def _lgag_launch(g, x, taps, a1, b1, psi_w, scalars):
     B, H, W, C = g.shape
     if g.device.type != "cuda":
         raise ValueError(f"lgag_gate: no kernel for {g.device}")
-    gc, xc = g.contiguous(), x.contiguous()
+    # the kernel moves 4-byte words or wider: a bf16 view one element into
+    # its storage is copied to an aligned buffer
+    gc, xc = [t.contiguous() if t.data_ptr() % 4 == 0
+              else t.clone(memory_format=torch.contiguous_format)
+              for t in (g, x)]
     prm = [t.to(device=g.device, dtype=torch.float32).contiguous()
            for t in (taps, a1, b1, psi_w, scalars)]
     _build.check_cuda(gc, xc, *prm)

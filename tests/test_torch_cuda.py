@@ -23,7 +23,8 @@ from ceigm_unet_tpu_torch.ops.dwconv import (dwconv3x3, dwconv3x3_flip,
                                              dwconv3x3_ref)
 from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
                                           custom_ffn_fused_ref,
-                                          inception7, inception7_ref,
+                                          dw3_gelu_inception7,
+                                          dw3_gelu_inception7_ref,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   dysample_grid_sample_ref,
@@ -220,15 +221,40 @@ def test_grid_sample_kernel(dev, BHWC, dtype, offset_scale):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("HWC", [(14, 14, 348), (56, 56, 64), (5, 7, 6)])
+# the three b128 model shapes at b2 (C2 174 = 5 * 32 + 14: a partial last
+# chunk, 8-byte items in bf16); C 2 (one c2) and 6; H below a strip (3, 1),
+# W over one tile (two tiles of 20 and of 17), W below a strip, H != W
+@pytest.mark.parametrize("HWC", [(14, 14, 348), (28, 28, 128), (56, 56, 64),
+                                 (5, 7, 6), (3, 40, 2), (9, 4, 64),
+                                 (16, 33, 128), (1, 5, 348)])
 def test_lgag_kernel(dev, HWC, dtype):
     H, W, C = HWC
-    g = torch.Generator().manual_seed(C)
+    g = torch.Generator().manual_seed(C + H)
     C2 = C // 2
     gx = [_rand(g, (2, H, W, C), dev, 1.0, DT[dtype]) for _ in range(2)]
     prm = [_rand(g, (5, 5, 2, C2), dev, .2), 1 + _rand(g, (C2,), dev, .1),
            _rand(g, (C2,), dev, .1), _rand(g, (C2,), dev, .3),
            _rand(g, (3,), dev, .5)]
+    _build.reset_launch_counts()
+    got = lgag_gate(*gx, *prm)
+    assert dict(_build.launch_counts) == {"lgag_gate": 1}
+    assert got.dtype == DT[dtype]
+    _close(got, lgag_gate_ref(*gx, *prm), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lgag_kernel_unaligned_operands(dev, dtype):
+    """g and x starting one element into their storage (a 2-byte aligned
+    bf16 pointer): the wrapper copies them to an aligned buffer, the
+    kernel takes the narrowest item, the result holds."""
+    H, W, C = 9, 10, 64
+    g = torch.Generator().manual_seed(5)
+    n = 2 * H * W * C
+    gx = [_rand(g, (n + 1,), dev, 1.0, DT[dtype])[1:].view(2, H, W, C)
+          for _ in range(2)]
+    prm = [_rand(g, (5, 5, 2, C // 2), dev, .2),
+           1 + _rand(g, (C // 2,), dev, .1), _rand(g, (C // 2,), dev, .1),
+           _rand(g, (C // 2,), dev, .3), _rand(g, (3,), dev, .5)]
     _close(lgag_gate(*gx, *prm), lgag_gate_ref(*gx, *prm), dtype)
 
 
@@ -249,11 +275,11 @@ def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
         got = model(x.to(dev))
         torch.cuda.synchronize()
     counts = dict(_build.launch_counts)
-    # 4 encoder + 7 decoder quad blocks; 7 CustomFfn (2 GEMMs + 2
-    # stencils each); 3 DySample; 3 LGAG
+    # 4 encoder + 7 decoder quad blocks; 7 CustomFfn (2 GEMMs + the
+    # stencil between them each); 3 DySample; 3 LGAG
     assert counts == {"quad_scan_ln": 11, "cffn_gemm": 14,
-                      "cffn_dw3_gelu": 7, "cffn_inception7": 7,
-                      "dysample_grid_sample": 3, "lgag_gate": 3}
+                      "cffn_dw3_inception7": 7, "dysample_grid_sample": 3,
+                      "lgag_gate": 3}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
 
@@ -341,31 +367,57 @@ def _inception_taps(g, HID, n_id, dev):
 
 
 @pytest.mark.parametrize("case", [
-    # the three b128 model shapes at b2 (n_id 870 allows 8-byte items)
-    (2, 14, 14, 1392, 870, 0), (2, 28, 28, 512, 320, 0),
-    (2, 56, 56, 256, 160, 0),
+    # the three b128 model shapes at b2 (n_id 870 allows 8-byte tap items)
+    (2, 14, 14, 1392, 870, 0, 0.1, "random"),
+    (2, 28, 28, 512, 320, 0, 0.1, "random"),
+    (2, 56, 56, 256, 160, 0, 0.1, "random"),
     # H below a strip, W over one tile (two tiles of 20); H != W
-    (3, 5, 40, 96, 60, 0), (2, 9, 37, 64, 24, 0),
+    (3, 5, 40, 96, 60, 0, 0.1, "random"), (2, 9, 37, 64, 24, 0, 0.1, "random"),
     # n_id 0 (every channel tapped) and HID (none); an odd n_id (4-byte
     # items); HID 90 (8-byte) and 87 (4-byte), a partial channel group
-    (2, 11, 12, 128, 0, 0), (2, 11, 12, 128, 128, 0),
-    (2, 10, 9, 128, 61, 0), (2, 7, 13, 90, 30, 0), (2, 8, 8, 87, 33, 0),
+    (2, 11, 12, 128, 0, 0, 0.1, "random"),
+    (2, 11, 12, 128, 128, 0, 0.1, "random"),
+    (2, 10, 9, 128, 61, 0, 0.1, "random"), (2, 7, 13, 90, 30, 0, 0.1, "random"),
+    (2, 8, 8, 87, 33, 0, 0.1, "random"),
     # the hidden's base pointer one element past a 16-byte boundary
-    (2, 14, 14, 256, 160, 1)], ids=lambda c: "b{}-{}x{}-HID{}-id{}-off{}"
-                               .format(*c))
-def test_inception7_kernel(dev, case):
-    """``inception7`` (K3's stencil, ``cffn_inception7``) against
-    ``inception7_ref`` at the fp32 tolerance."""
-    B, H, W, HID, n_id, offset = case
+    (2, 14, 14, 256, 160, 1, 0.1, "random"),
+    # dwb of scale 3: a q outside the image computed as gelu(dwb), where
+    # the 7x7's zero padding has 0, moves the border outputs far past the
+    # tolerance
+    (2, 9, 11, 128, 64, 0, 3.0, "random"),
+    # the composite's taps: groups of reach 1, 2 and 3 (3x3, 5x5, 7x7); 28
+    # rows walked as 4 strips by a tap block, 45 as 4 and 3 (a partial
+    # strip last), 56 as two runs of 4
+    (2, 28, 28, 512, 320, 0, 0.1, "composite"),
+    (1, 45, 20, 256, 160, 0, 0.1, "composite"),
+    (2, 56, 56, 256, 160, 0, 3.0, "composite")],
+    ids=lambda c: "b{}-{}x{}-HID{}-id{}-off{}-dwb{}-{}".format(*c))
+def test_dw3_gelu_inception7_kernel(dev, case):
+    """``dw3_gelu_inception7`` (K3's stencil between the GEMMs,
+    ``cffn_dw3_inception7``) against ``dw3_gelu_inception7_ref`` at the
+    fp32 tolerance."""
+    B, H, W, HID, n_id, offset, dwb_scale, taps = case
     g = torch.Generator().manual_seed(HID + n_id)
-    k, bias = _inception_taps(g, HID, n_id, dev)
+    if taps == "composite":
+        gb = HID // 8
+        assert n_id == HID - 3 * gb
+        k, bias = inception_composite(
+            HID, gb, _rand(g, (3, 3, 1, gb), dev, .2),
+            _rand(g, (5, 5, 1, gb), dev, .1),
+            _rand(g, (7, 7, 1, gb), dev, .05),
+            *[_rand(g, (gb,), dev, .1) for _ in range(3)], torch.float32)
+    else:
+        k, bias = _inception_taps(g, HID, n_id, dev)
+    dwk, dwb = _rand(g, (3, 3, 1, HID), dev, 0.2), _rand(g, (HID,), dev,
+                                                          dwb_scale)
     M = B * H * W
-    q = _rand(g, (M * HID + offset,), dev)[offset:].view(M, HID)
-    assert q.data_ptr() % 16 == 4 * offset
+    h = _rand(g, (M * HID + offset,), dev)[offset:].view(M, HID)
+    assert h.data_ptr() % 16 == 4 * offset
     _build.reset_launch_counts()
-    got = inception7(q, k, bias, H, W, n_id)
-    assert dict(_build.launch_counts) == {"cffn_inception7": 1}
-    _close(got, inception7_ref(q, k, bias, H, W, n_id), "float32")
+    got = dw3_gelu_inception7(h, dwk, dwb, k, bias, H, W, n_id)
+    assert dict(_build.launch_counts) == {"cffn_dw3_inception7": 1}
+    _close(got, dw3_gelu_inception7_ref(h, dwk, dwb, k, bias, H, W, n_id),
+           "float32")
 
 
 def _quad_leaves(g, B, H, W, D, dev, dtype):
@@ -488,8 +540,7 @@ def test_gm_test_train_step_on_card_matches_cpu(dev):
     # DySample; LGAG takes its unfolded form in training
     _train_step_card_vs_cpu(dev, {}, {
         "quad_scan_ln": 11, "scan2d": 22, "cffn_gemm": 14,
-        "cffn_dw3_gelu": 7, "cffn_inception7": 7,
-        "dysample_grid_sample": 3})
+        "cffn_dw3_inception7": 7, "dysample_grid_sample": 3})
 
 
 # --- the legacy VMamba slice: K10, K11, K12 --------------------------------------
@@ -849,12 +900,11 @@ def test_route_ops_keep_the_autograd_graph(dev):
     # upsamplers, once each
     (dict(dwconv="kernel", dysample_grouped=False),
      {"quad_scan_ln": 11, "dwconv3x3": 11, "cffn_gemm": 14,
-      "cffn_dw3_gelu": 7, "cffn_inception7": 7, "grid_sample_bilinear": 3,
-      "lgag_gate": 3}),
+      "cffn_dw3_inception7": 7, "grid_sample_bilinear": 3, "lgag_gate": 3}),
     # K14 in place of K1 in the 11 quad blocks
     (dict(quant_scan=True),
-     {"quad_scan_ln_q8": 11, "cffn_gemm": 14, "cffn_dw3_gelu": 7,
-      "cffn_inception7": 7, "dysample_grid_sample": 3, "lgag_gate": 3})])
+     {"quad_scan_ln_q8": 11, "cffn_gemm": 14, "cffn_dw3_inception7": 7,
+      "dysample_grid_sample": 3, "lgag_gate": 3})])
 def test_gm_test_routes_on_card_match_cpu_and_count_launches(dev, routes,
                                                              launches):
     """Card against CPU, fp32: the kernel routes at the model's tolerance
@@ -883,5 +933,5 @@ def test_gm_test_kernel_routes_train_step_on_card_matches_cpu(dev):
     _train_step_card_vs_cpu(dev, dict(dwconv="kernel",
                                       dysample_grouped=False), {
         "quad_scan_ln": 11, "scan2d": 22, "dwconv3x3": 11,
-        "dwconv3x3_flip": 11, "cffn_gemm": 14, "cffn_dw3_gelu": 7,
-        "cffn_inception7": 7, "grid_sample_bilinear": 3})
+        "dwconv3x3_flip": 11, "cffn_gemm": 14, "cffn_dw3_inception7": 7,
+        "grid_sample_bilinear": 3})

@@ -24,9 +24,9 @@ from ceigm_unet_tpu.ops.resize import (zoom_slices as jzoom,
 from ceigm_unet_tpu.ops.tapconv import lgag_gate_eval as jlgag
 from ceigm_unet_tpu_torch.ops import _build
 from ceigm_unet_tpu_torch.ops.activations import gelu
-from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused, dw3_gelu,
-                                          ffn_gemm, ffn_gemm_ref,
-                                          gemm_operands, inception7,
+from ceigm_unet_tpu_torch.ops.ffn import (custom_ffn_fused,
+                                          dw3_gelu_inception7, ffn_gemm,
+                                          ffn_gemm_ref, gemm_operands,
                                           inception_composite)
 from ceigm_unet_tpu_torch.ops.grid_sample import (dysample_grid_sample,
                                                   grid_sample_bilinear)
@@ -217,7 +217,7 @@ def test_custom_ffn_matches_jax(HWC, dtype):
 
 
 def test_ffn_stages_compose_to_custom_ffn():
-    """fc1 GEMM -> dw3x3+GELU -> inception -> fc2 GEMM, the stages the card
+    """fc1 GEMM -> dw3x3+GELU+inception -> fc2 GEMM, the stages the card
     runs as separate kernels, equal the plain CustomFfn in fp32."""
     H, W, C, HID = 6, 7, 16, 64
     a = {k: torch.from_numpy(np.asarray(v, np.float32))
@@ -226,13 +226,44 @@ def test_ffn_stages_compose_to_custom_ffn():
                                      a["p7k"], a["p3b"], a["p5b"], a["p7b"],
                                      torch.float32)
     h = ffn_gemm(a["x"].reshape(H * W, C), a["w1"], a["b1"], torch.float32)
-    q = inception7(dw3_gelu(h, a["dwk"], a["dwb"], H, W), inck, incb, H, W,
-                   HID - 3 * (HID // 8))
+    q = dw3_gelu_inception7(h, a["dwk"], a["dwb"], inck, incb, H, W,
+                            HID - 3 * (HID // 8))
     got = ffn_gemm(q, a["w2"], a["b2"], torch.float32)
     want = custom_ffn_fused(a["x"], a["w1"], a["b1"], a["dwk"], a["dwb"],
                             inck, incb, a["w2"], a["b2"], H, W)
     np.testing.assert_allclose(got.numpy(), want.reshape(H * W, C).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# 6x7, and 3x9: every pixel within the 7x7's reach of the border
+@pytest.mark.parametrize("HW", [(6, 7), (3, 9)])
+def test_dw3_gelu_inception7_matches_jax_hidden_path(HW):
+    """The stencil between the GEMMs against the JAX CustomFfn's hidden
+    path: with w1 and w2 the identity (C = HID) and b1, b2 zero, JAX's
+    ``custom_ffn_fused`` (its Pallas kernel in interpret mode) computes
+    exactly q + composite7x7(q) + incb with q = gelu(dw3(x) + dwb). dwb of
+    scale 1 makes a border q computed as gelu(dwb), where the 7x7's
+    padding has 0, show far above the tolerance."""
+    H, W = HW
+    HID = 64
+    a = _cffn_inputs(H, W, HID, HID, seed=3)
+    a["dwb"] = a["dwb"] * 10.0
+    comp = ("p3k", "p5k", "p7k", "p3b", "p5b", "p7b")
+    jinck, jincb = jcomposite(HID, HID // 8, *[_both(a[n])[0] for n in comp],
+                              jnp.float32)
+    tinck, tincb = inception_composite(HID, HID // 8,
+                                       *[_both(a[n])[1] for n in comp],
+                                       torch.float32)
+    (jx, tx), (jdwk, tdwk), (jdwb, tdwb) = [_both(a[n])
+                                            for n in ("x", "dwk", "dwb")]
+    eye, zero = np.eye(HID), np.zeros(HID)
+    n_tap = 3 * (HID // 8)
+    want = jcffn(jx, _both(eye)[0], _both(zero)[0], jdwk, jdwb, jinck, jincb,
+                 _both(eye)[0], _both(zero)[0], H, W, n_tap)
+    got = dw3_gelu_inception7(tx.reshape(H * W, HID), tdwk, tdwb, tinck,
+                              tincb, H, W, HID - n_tap)
+    np.testing.assert_allclose(_f32(got), _f32(want).reshape(H * W, HID),
+                               **TOL["float32"])
 
 
 @pytest.mark.parametrize("fc2", [False, True])
@@ -386,6 +417,10 @@ def test_wrappers_refuse_devices_without_kernels():
     with pytest.raises(ValueError, match="no kernel"):
         lgag_gate(x, x, torch.empty((5, 5, 2, 4)), *[torch.empty(4)] * 3,
                   torch.empty(3))
+    with pytest.raises(ValueError, match="no kernel"):
+        dw3_gelu_inception7(torch.empty((16, 8), device="meta"),
+                            torch.empty((3, 3, 1, 8)), torch.empty(8),
+                            torch.empty((7, 7, 1, 8)), torch.empty(8), 4, 4)
 
 
 def test_ffn_gemm_rejects_dtype_pairs_the_kernel_lacks():
