@@ -39,10 +39,18 @@ GEMMs, dw3+GELU and the inception 7x7 (``cffn_dw3_inception7``, or a
 base's ``cffn_dw3_gelu`` followed by its ``cffn_inception7``, timed as one
 case) at the three b128 CustomFfn shapes beside ``F.conv2d`` of the 7x7
 alone; and K5 (``lgag_gate``) at the three b128 bf16 shapes of the
-decoder's eval gates. These are device times: the queue is held behind a spin
-kernel while the timed calls are enqueued, so host time per call does not
-enter. ``--kernels`` picks groups of cases (all
-by default). Prints the card's name and power limit first.
+decoder's eval gates; and the selective scan's row kernels
+(``csrc/scan_rows.cu``): K12 (``selective_scan_n1``) at the reference
+speed test's shape (B 128, D 96, N 1, L 4096, bf16 in) with fp32 and with
+bf16 out, and K11 (``scan_rows``) at the row shapes of the public op's
+forward calls and, on the flipped operands its backward hands it, of its
+backward calls (each entry point called directly, and through this
+checkout's wrapper, also with the host in the loop; a base whose
+``selective_scan_n1`` takes fp32 B and C gets fp32 copies made outside the
+timed region, as its wrapper made them). These are device times: the queue
+is held behind a spin kernel while the timed calls are enqueued, so host
+time per call does not enter. ``--kernels`` picks groups of cases (all by
+default). Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ import torch.nn.functional as F
 
 from ceigm_unet_tpu_torch.ops import (_build, dwconv, ffn, grid_sample,
                                       quad_scan, tapconv)
+from ceigm_unet_tpu_torch.ops import selective_scan as ss
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -791,8 +800,165 @@ def lgag_cases(libs, gpu, gen):
           + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()), flush=True)
 
 
+# the reference selective-scan speed test (tools/bench_scan.py:25): K12's
+# (batch, dim, L), N 1, bf16 u, delta, B and C
+N1_SHAPE = (128, 96, 4096)
+# K11's row shapes (tag, M, L, calls per pass over chip_smoke.py phase 13's
+# forward calls, backwards per pass over phase 20's): N 1 without softplus
+# at the speed-test shape (its backward runs twice, with and without
+# softplus), and d_state 16 over 56x56 at B 8. Each backward runs K11 twice:
+# h again on the forward's a and b, and the adjoint on flipped operands.
+SCAN_ROWS = [("B128 D96 N1 L4096", 128 * 96, 4096, 1, 2),
+             ("B8 D96 N16 L3136", 8 * 96 * 16, 3136, 1, 1)]
+
+
+def _n1_takes_dtypes(lib, csrc: Path) -> bool:
+    """Whether ``csrc``'s ``selective_scan_n1`` reads B and C in their own
+    dtype through strides (an older one takes fp32 (batch*G, L) B and C and
+    contiguous (dim,) constants); declares its arguments on ``lib``."""
+    new = "long long su0" in (csrc / "scan_rows.cu").read_text()
+    _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.selective_scan_n1.argtypes = (
+        [_P] * 8 + ([_L] * 9 + [_I] * 8 if new else [_I] * 6) + [_P])
+    return new
+
+
+def _n1(lib, new, u, delta, A, B, C, D, bias, out_dtype, f32):
+    """The C entry ``selective_scan_n1`` of ``lib`` on (batch, dim, L) u
+    and delta, (batch, G, 1, L) B and C; an older entry point gets
+    ``f32``, the fp32 copies its wrapper made (Bf, Cf, A's column)."""
+    batch, dim, L = u.shape
+    G = B.shape[1]
+    out = torch.empty((batch, dim, L), dtype=out_dtype, device=u.device)
+    p, code = _build.ptr, _build.dtype_code
+    if new:
+        err = lib.selective_scan_n1(
+            p(u), p(delta), p(B), p(C), p(A), p(bias), p(D), p(out),
+            *u.stride()[:2], *delta.stride()[:2], *B.stride()[:2],
+            *C.stride()[:2], A.stride(0), batch, dim, G, L, code(u),
+            code(delta), code(B), code(out), _stream())
+    else:
+        Bf, Cf, A0 = f32
+        err = lib.selective_scan_n1(
+            p(u), p(delta), p(Bf), p(Cf), p(A0), p(bias), p(D), p(out),
+            batch * dim, dim, G, L, code(u), code(out), _stream())
+    if err:
+        raise RuntimeError(f"selective_scan_n1 failed to launch: "
+                           f"cudaError_t {err}")
+    return out
+
+
+def _scan_rows(lib, a, b):
+    out = torch.empty_like(a)
+    p = _build.ptr
+    err = lib.scan_rows(p(a), p(b), p(out), a.shape[0], a.shape[1],
+                        _stream())
+    if err:
+        raise RuntimeError(f"scan_rows failed to launch: cudaError_t {err}")
+    return out
+
+
+def selective_scan_cases(libs, new, gpu, gen):
+    """K12 at the speed-test shape with fp32 and bf16 out, and K11 at its
+    row shapes: on the a and b the forward builds, and on the flipped
+    adjoint operands the backward hands it (``selective_scan_bwd``). Each
+    library's entry point is called directly and held against its plain
+    version at the bf16 tolerance (K11, fp32 in and out: the fp32 one),
+    then timed in turns as device time; this checkout's wrapper beside
+    them, as device time and with the host in the loop. Bounds: K12 reads
+    u, delta, B and C and the (dim,) constants once and writes y; K11 reads
+    a and b and writes h, fp32 (12 bytes per element)."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    batch, dim, L = N1_SHAPE
+    rnd = lambda shape, scale=1.0, dt=bf16: (torch.randn(
+        shape, generator=gen, device=dev) * scale).to(dt)
+    u, delta = rnd((batch, dim, L)), rnd((batch, dim, L), 0.1)
+    A = -torch.exp(rnd((dim, 1), 0.5, torch.float32))
+    B, C = rnd((batch, 1, 1, L)), rnd((batch, 1, 1, L))
+    D, bias = rnd((dim,), 1.0, torch.float32), rnd((dim,), 0.3, torch.float32)
+    f32 = (B[:, :, 0].float().contiguous(), C[:, :, 0].float().contiguous(),
+           A[:, 0].contiguous())
+    for od in (torch.float32, bf16):
+        args = (u, delta, A, B, C, D, bias, od)
+        runs = {n: (lambda n=n: _n1(libs[n], new[n], *args, f32))
+                for n in libs}
+        runs["this wrapper"] = lambda: ss.selective_scan_n1(*args)
+        plain = ss.selective_scan_n1_ref(*args).float()
+        scale = plain.abs().max().item()
+        errs = {}
+        for n, fn in runs.items():
+            err = (fn().float() - plain).abs()
+            if bool((err > 5e-2 * scale + 3e-2 * plain.abs()).any()):
+                raise SystemExit(f"{n} selective_scan_n1 out {od}: max abs "
+                                 f"err {err.max().item():.3e}")
+            errs[n] = err.max().item()
+        del plain
+        ms = {n: [] for n in runs}
+        for n in ["base", "this", "this wrapper", "this wrapper", "this",
+                  "base"]:
+            ms[n].append(device_time(runs[n]))
+        med = {n: statistics.median(v) for n, v in ms.items()}
+        med["this wrapper, host in the loop"] = _time(runs["this wrapper"])
+        n_el = u.numel()
+        med["bound"] = (4 * n_el + n_el * torch.finfo(od).bits // 8
+                        + 4 * B.numel() + 12 * dim) / HBM_BPS * 1e3
+        print(f"selective_scan_n1 [B{batch} D{dim} N1 L{L} bf16 -> "
+              f"{str(od).split('.')[-1]}] device ms: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in med.items())
+              + f", this / bound {med['this'] / med['bound']:.2f}, max abs "
+              + ", ".join(f"err {n} {v:.3e}" for n, v in errs.items())
+              + f" (max|plain| {scale:.3e}) | {gpu}", flush=True)
+    del u, delta, f32
+    totals = {}
+    for tag, M, L, fwd, bwd in SCAN_ROWS:
+        a = torch.sigmoid(torch.randn((M, L), generator=gen, device=dev) * 2
+                          + 2)
+        b = torch.randn((M, L), generator=gen, device=dev)
+        # the backward's adjoint: a_{t+1} (1 past the end) and the drive,
+        # both reversed along L
+        adj = (torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], -1).flip(-1),
+               b.flip(-1))
+        for which, (x, y), calls in (("h on a, b", (a, b), (fwd, bwd)),
+                                     ("backward adjoint", adj, (0, bwd))):
+            runs = {n: (lambda n=n: _scan_rows(libs[n], x, y)) for n in libs}
+            runs["this wrapper"] = lambda: ss.scan_rows(x, y)
+            plain = ss.scan_rows_ref(x, y)
+            scale = plain.abs().max().item()
+            errs = {}
+            for n, fn in runs.items():
+                err = (fn() - plain).abs()
+                if bool((err > 1e-4 * scale + 1e-4 * plain.abs()).any()):
+                    raise SystemExit(f"{n} scan_rows {tag}: max abs err "
+                                     f"{err.max().item():.3e}")
+                errs[n] = err.max().item()
+            del plain
+            ms = {n: [] for n in runs}
+            for n in ["base", "this", "this wrapper", "this wrapper", "this",
+                      "base"]:
+                ms[n].append(device_time(runs[n]))
+            med = {n: statistics.median(v) for n, v in ms.items()}
+            med["this wrapper, host in the loop"] = _time(runs["this wrapper"])
+            med["bound"] = 12 * M * L / HBM_BPS * 1e3
+            for n, v in med.items():
+                for k, c in zip(("forward", "backward"), calls):
+                    totals[k, n] = totals.get((k, n), 0.0) + c * v
+            print(f"scan_rows [{tag}, M {M} L {L}, {which}] x{calls[0]}/"
+                  f"forward x{calls[1]}/backward pass, device ms: "
+                  + ", ".join(f"{n} {v:.4f}" for n, v in med.items())
+                  + f", this / bound {med['this'] / med['bound']:.2f}, max "
+                  "abs " + ", ".join(f"err {n} {v:.3e}" for n, v in
+                                     errs.items())
+                  + f" (max|plain| {scale:.3e}) | {gpu}", flush=True)
+        del a, b, adj
+    for k in ("forward", "backward"):
+        print(f"scan_rows per pass over the op's {k} calls, device ms: "
+              + ", ".join(f"{n} {v:.4f}" for (kk, n), v in totals.items()
+                          if kk == k), flush=True)
+
+
 KERNELS = ("scan2d", "cffn_gemm", "grid_sample", "dwconv", "sscan_dir",
-           "quad_scan_ln", "cffn_stencil", "lgag")
+           "quad_scan_ln", "cffn_stencil", "lgag", "selective_scan")
 
 
 def main() -> int:
@@ -841,6 +1007,10 @@ def main() -> int:
         stencil_cases(libs, gpu, gen)
     if "lgag" in args.kernels:
         lgag_cases(libs, gpu, gen)
+    if "selective_scan" in args.kernels:
+        selective_scan_cases(libs, {
+            n: _n1_takes_dtypes(libs[n], csrc)
+            for n, csrc in (("base", base), ("this", _build.CSRC))}, gpu, gen)
     return 0
 
 

@@ -48,7 +48,7 @@ SIGNATURES = {
     "scan2d": [_P] * 3 + [_L] * 6 + [_I] * 10 + [_P],
     "sscan_dir": [_P] * 8 + [_L] * 14 + [_I] * 10 + [_P],
     "scan_rows": [_P] * 3 + [_I] * 2 + [_P],
-    "selective_scan_n1": [_P] * 8 + [_I] * 6 + [_P],
+    "selective_scan_n1": [_P] * 8 + [_L] * 9 + [_I] * 8 + [_P],
 }
 
 # launches per C entry point since the last reset_launch_counts()

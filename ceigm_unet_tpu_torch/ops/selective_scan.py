@@ -75,15 +75,18 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.view(a.shape)
 
 
-def _check_n1(u, delta, A, B4, C4):
+def _check_n1(u, delta, A, B4, C4, D, delta_bias):
     batch, dim, L = u.shape
     G = B4.shape[1]
+    opt = {"D": D, "delta_bias": delta_bias}
     if delta.shape != u.shape or A.shape != (dim, 1) \
             or B4.shape != (batch, G, 1, L) or C4.shape != B4.shape \
-            or dim % G:
-        raise ValueError(f"selective_scan_n1: u {tuple(u.shape)} delta "
-                         f"{tuple(delta.shape)} A {tuple(A.shape)} B "
-                         f"{tuple(B4.shape)} C {tuple(C4.shape)}")
+            or dim % G or any(t is not None and t.shape != (dim,)
+                              for t in opt.values()):
+        shapes = {"u": u, "delta": delta, "A": A, "B": B4, "C": C4, **opt}
+        raise ValueError("selective_scan_n1: " + " ".join(
+            f"{k} {None if t is None else tuple(t.shape)}"
+            for k, t in shapes.items()))
     return batch, dim, G, L
 
 
@@ -91,7 +94,7 @@ def selective_scan_n1_ref(u, delta, A, B, C, D=None, delta_bias=None,
                           out_dtype=None) -> torch.Tensor:
     """Plain version of :func:`selective_scan_n1`."""
     B4, C4 = _bc4(B), _bc4(C)
-    batch, dim, G, L = _check_n1(u, delta, A, B4, C4)
+    batch, dim, G, L = _check_n1(u, delta, A, B4, C4, D, delta_bias)
     grp = lambda t: t.reshape(batch, G, dim // G, L)
     x = delta.float()
     if delta_bias is not None:
@@ -113,7 +116,7 @@ def selective_scan_n1(u, delta, A, B, C, D=None, delta_bias=None,
     L) rows, B and C read per (batch, group). A: (dim, 1). Returns y
     (batch, dim, L) in ``out_dtype`` (None: u's dtype)."""
     B4, C4 = _bc4(B), _bc4(C)
-    batch, dim, G, L = _check_n1(u, delta, A, B4, C4)
+    batch, dim, G, L = _check_n1(u, delta, A, B4, C4, D, delta_bias)
     out_dtype = out_dtype or u.dtype
     if u.device.type == "cpu":
         return selective_scan_n1_ref(u, delta, A, B4, C4, D, delta_bias,
@@ -122,24 +125,36 @@ def selective_scan_n1(u, delta, A, B, C, D=None, delta_bias=None,
         raise ValueError(f"selective_scan_n1: no kernel for {u.device}")
     opt = [t for t in (D, delta_bias) if t is not None]
     _build.check_no_grad("selective_scan_n1", u, delta, A, B4, C4, *opt)
-    # the kernel reads u and delta in one dtype (bf16 only if both are)
-    # and B, C and the per-channel constants in fp32
-    kdt = (torch.bfloat16 if u.dtype == delta.dtype == torch.bfloat16
-           else torch.float32)
-    uk, dk = u.to(kdt).contiguous(), delta.to(kdt).contiguous()
-    f32 = lambda t: t.to(device=u.device, dtype=torch.float32).contiguous()
-    zero = torch.zeros(dim, dtype=torch.float32, device=u.device)
-    prm = [f32(A[:, 0]), zero if delta_bias is None else f32(delta_bias),
-           zero if D is None else f32(D)]
-    Bf, Cf = f32(B4[:, :, 0]), f32(C4[:, :, 0])
-    _build.check_cuda(uk, dk, Bf, Cf, *prm)
+    # the kernel reads u, delta, B and C in their own dtype (fp32 or bf16;
+    # B and C in one) with unit stride along L, through their (batch, dim)
+    # and (batch, group) strides, A's column through its stride, and takes
+    # a null pointer for an absent D or delta_bias: a call on such inputs
+    # allocates y and nothing else
+    uk, dk = _rows(u), _rows(delta)
+    Bk, Ck = _rows(B4[:, :, 0]), _rows(C4[:, :, 0])
+    if Bk.dtype != Ck.dtype:
+        Bk, Ck = Bk.float(), Ck.float()
+    Ak = A[:, 0].float()
+    prm = [None if t is None else t.float().contiguous()
+           for t in (delta_bias, D)]
+    _build.check_cuda(uk, dk, Bk, Ck, Ak, *[t for t in prm if t is not None])
     odt = out_dtype if out_dtype in _build.DTYPE_CODES else torch.float32
     out = torch.empty((batch, dim, L), dtype=odt, device=u.device)
-    p = _build.ptr
-    _build.launch("selective_scan_n1", p(uk), p(dk), p(Bf), p(Cf),
-                  *[p(t) for t in prm], p(out), batch * dim, dim, G, L,
-                  _build.dtype_code(uk), _build.dtype_code(out))
+    p, code = _build.ptr, _build.dtype_code
+    _build.launch("selective_scan_n1", p(uk), p(dk), p(Bk), p(Ck), p(Ak),
+                  *[None if t is None else p(t) for t in prm], p(out),
+                  *uk.stride()[:2], *dk.stride()[:2], *Bk.stride()[:2],
+                  *Ck.stride()[:2], Ak.stride(0), batch, dim, G, L,
+                  code(uk), code(dk), code(Bk), code(out))
     return out.to(out_dtype)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """t as the K12 kernel reads it: fp32 or bf16, unit stride along L (a
+    view of t where it already is)."""
+    if t.dtype not in _build.DTYPE_CODES:
+        t = t.float()
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
 def _prep(u, delta, A, B4, delta_bias, delta_softplus: bool):

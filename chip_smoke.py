@@ -65,8 +65,10 @@ exits non-zero without its last line:
    beside them: K10 (``csrc/sscan_dir.cu``) at each of the four 224x224
    tiny_0230s SS2D shapes at b2 fp32, b2 bf16 and b128 bf16 (phase 3's
    tolerances); K12 and K11 (``csrc/scan_rows.cu``) at the reference
-   selective-scan speed test's shape (B 128, D 96, N 1, L 4096, bf16 in,
-   fp32 out) and K11 also at B 8, D 96, N 16, L 3136 (fp32 tolerance);
+   selective-scan speed test's shape (B 128, D 96, N 1, L 4096, bf16 in;
+   K12 with fp32 out at the fp32 tolerance and with bf16 out at the bf16
+   one) and K11 also at B 8, D 96, N 16, L 3136 (fp32 tolerance), each
+   also timed as device time;
 11. legacy model: the legacy MSVM-UNet (VSSM tiny_0230s + the published
    decoder, 9 classes, seeded random weights) at 224x224, b2 fp32, on the
    card against the CPU (phase 4's tolerance), the launches of one forward
@@ -1050,9 +1052,13 @@ def scan_inputs(dev, batch, dim, N, L, softplus=True):
 
 def phase_scan_kernels(dev, gpu):
     """K12 and K11 against their plain versions at the selective-scan
-    shapes (fp32 tolerance: both compute in fp32 from the same inputs),
-    timed beside them; the numbers of one pass over SCAN_CALLS (K12 once,
-    K11 twice)."""
+    shapes: K12 with fp32 out (the op's call) at the fp32 tolerance, since
+    both compute in fp32 from the same inputs, and with bf16 out (not on
+    the path) at the bf16 one; K11 at the fp32 one. Each timed beside its
+    plain version, with the host in the loop and as the device's work alone
+    (``device_ms``); the numbers of one pass over SCAN_CALLS (K12 once, K11
+    twice)."""
+    from ceigm_unet_tpu_torch.kernel_ab import device_time
     from ceigm_unet_tpu_torch.ops import selective_scan as ss
     results = {}
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1061,14 +1067,16 @@ def phase_scan_kernels(dev, gpu):
     u, delta, A, B, C, D, bias = scan_inputs(dev, *shape)
     n = u.numel()
     rows["selective_scan_n1"] = [(
-        f"{tag}, bf16 -> fp32",
-        lambda: ss.selective_scan_n1(u, delta, A, B, C, D, bias,
-                                     torch.float32),
-        lambda: ss.selective_scan_n1_ref(u, delta, A, B, C, D, bias,
-                                         torch.float32),
-        # u, delta bf16 and B, C read, y fp32 written; ~12 operations per
+        f"{tag}, bf16 -> {str(od).split('.')[-1]}{note}", calls,
+        lambda od=od: ss.selective_scan_n1(u, delta, A, B, C, D, bias, od),
+        lambda od=od: ss.selective_scan_n1_ref(u, delta, A, B, C, D, bias,
+                                               od),
+        # u, delta bf16 and B, C read, y written; ~12 operations per
         # element (softplus, decay, drive, FMA, C*h + D*u)
-        2 * 2 * n + 2 * 2 * B.numel() + 3 * 4 * D.numel() + 4 * n, 12 * n)]
+        2 * 2 * n + 2 * 2 * B.numel() + 3 * 4 * D.numel()
+        + od.itemsize * n, 12 * n, od)
+        for od, calls, note in ((torch.float32, 1, ""),
+                                (torch.bfloat16, 0, " (not on the path)"))]
     rows["scan_rows"] = []
     for tag, (batch, dim, N, L), _ in k11_calls:
         M = batch * dim * N
@@ -1077,28 +1085,31 @@ def phase_scan_kernels(dev, gpu):
                           + 2)
         b = torch.randn((M, L), generator=g, device=dev)
         # a and b read, h written, fp32; one FMA per element
-        rows["scan_rows"].append((tag, lambda a=a, b=b: ss.scan_rows(a, b),
+        rows["scan_rows"].append((tag, 1,
+                                  lambda a=a, b=b: ss.scan_rows(a, b),
                                   lambda a=a, b=b: ss.scan_rows_ref(a, b),
-                                  12 * M * L, 2 * M * L))
+                                  12 * M * L, 2 * M * L, torch.float32))
     replaces = {"selective_scan_n1": "ceigm_unet_tpu/ops/scan_pallas.py:189",
                 "scan_rows": "ceigm_unet_tpu/ops/scan_pallas.py:83"}
     for name, cases in rows.items():
-        err = ms = plain_ms = bound = 0.0
-        for tag, kern, plain, nbytes, ops in cases:
-            e = compare(kern(), plain(), torch.float32)
-            err = max(err, e)
+        err = ms = dev_ms = plain_ms = bound = 0.0
+        for tag, calls, kern, plain, nbytes, ops, tol in cases:
+            e = compare(kern(), plain(), tol)
+            err = max(err, e) if calls else err
             k_ms, p_ms = time_ms(kern, 10), time_ms(plain, 3)
+            kd_ms = device_time(kern, 10)
             b_ms = max(nbytes / HBM_BPS, ops / PEAK["fp32"]) * 1e3
-            ms, plain_ms, bound = ms + k_ms, plain_ms + p_ms, bound + b_ms
-            log(f"kernel {name} [{tag}]: {k_ms:.4f} ms, plain {p_ms:.4f} "
-                f"ms, bound {b_ms:.4f} ms (bytes), max abs err {e:.3e} | "
-                f"{gpu}")
+            ms, dev_ms = ms + calls * k_ms, dev_ms + calls * kd_ms
+            plain_ms, bound = plain_ms + calls * p_ms, bound + calls * b_ms
+            log(f"kernel {name} [{tag}] x{calls}: {k_ms:.4f} ms (device "
+                f"{kd_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"(bytes), max abs err {e:.3e} | {gpu}")
         results[name] = dict(
             name=name, route="cuda",
             source="ceigm_unet_tpu_torch/csrc/scan_rows.cu",
             replaces=replaces[name], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-            library_ms=None)
+            library_ms=None, device_ms=dev_ms, library_device_ms=None)
     torch.cuda.empty_cache()
     return results
 

@@ -600,23 +600,80 @@ def test_scan_rows_kernel(dev, ML):
     _close(scan_rows(a, b), scan_rows_ref(a, b), "float32")
 
 
-@pytest.mark.parametrize("dtype,out", [("float32", "float32"),
-                                       ("bfloat16", "float32"),
-                                       ("bfloat16", "bfloat16")])
-@pytest.mark.parametrize("G,L,with_opt", [(1, 4096, True), (2, 300, False)])
-def test_selective_scan_n1_kernel(dev, dtype, out, G, L, with_opt):
-    batch, dim = 3, 8
+# (u, delta, B and C, out dtypes; G, dim; L; B and C 3-D; D and bias; u's
+# base one element off 16 bytes (the element path); long memory). batch 3:
+# M = 15, 18 and 36 rows are not all multiples of the 2, 4 or 8 rows a
+# block takes; L 1, 7, 300 and 4099 end inside a chunk or a round.
+F, H = "float32", "bfloat16"
+N1_CASES = [
+    (F, F, F, F, 1, 8, 4096, False, True, False, False),
+    (H, H, H, F, 1, 8, 4096, False, True, False, False),
+    (H, H, H, H, 1, 8, 4096, False, True, False, False),
+    (F, F, F, F, 2, 8, 300, False, False, False, False),
+    (H, H, H, F, 2, 8, 300, False, False, False, False),
+    (H, H, H, H, 2, 8, 300, False, False, False, False),
+    (H, H, H, F, 1, 5, 1, True, True, False, False),
+    (F, F, F, H, 1, 5, 7, True, False, False, False),
+    (H, H, F, F, 2, 6, 7, False, True, False, False),
+    (F, H, H, F, 2, 6, 300, False, True, False, False),
+    (F, H, F, F, 1, 5, 4096, True, False, False, False),
+    (H, H, H, F, 4, 12, 4099, False, True, False, False),
+    (H, F, H, H, 4, 12, 4096, False, False, False, False),
+    (F, F, H, F, 1, 5, 4099, True, True, False, False),
+    (H, H, H, F, 1, 5, 4096, False, True, True, False),
+    (F, F, F, F, 2, 6, 300, False, True, True, False),
+    (H, H, H, F, 2, 6, 16384, False, True, False, True),
+    (F, F, F, F, 1, 5, 16384, True, True, False, True),
+]
+
+
+@pytest.mark.parametrize("case", N1_CASES)
+def test_selective_scan_n1_kernel(dev, case):
+    """K12 against its plain version. Long memory: A = -exp(-8) and a
+    delta bias near -2 keep each step's decay within 1e-4 of 1, so the
+    state carries across every chunk and round of a 16384-step row."""
+    ut, dtt, bct, out, G, dim, L, three_d, with_opt, offset, long_mem = case
+    batch = 3
     g = torch.Generator().manual_seed(L + G)
-    u = _rand(g, (batch, dim, L), dev, 1.0, DT[dtype])
-    delta = _rand(g, (batch, dim, L), dev, 0.5, DT[dtype])
-    A = -torch.exp(_rand(g, (dim, 1), dev, 0.5))
-    B, C = [_rand(g, (batch, G, 1, L), dev, 1.0, DT[dtype]) for _ in "BC"]
-    D, bias = ((_rand(g, (dim,), dev), _rand(g, (dim,), dev, .3))
+    n = batch * dim * L
+    u = _rand(g, (n + offset,), dev, 1.0, DT[ut])[offset:].view(
+        batch, dim, L)
+    delta = _rand(g, (batch, dim, L), dev, 0.5, DT[dtt])
+    A = (torch.full((dim, 1), -math.exp(-8.0), device=dev) if long_mem
+         else -torch.exp(_rand(g, (dim, 1), dev, 0.5)))
+    bc = (batch, 1, L) if three_d else (batch, G, 1, L)
+    B, C = [_rand(g, bc, dev, 1.0, DT[bct]) for _ in "BC"]
+    D, bias = ((_rand(g, (dim,), dev),
+                _rand(g, (dim,), dev, .3) - (2.0 if long_mem else 0.0))
                if with_opt else (None, None))
     got = selective_scan_n1(u, delta, A, B, C, D, bias, DT[out])
     assert got.dtype == DT[out]
     _close(got, selective_scan_n1_ref(u, delta, A, B, C, D, bias, DT[out]),
-           "bfloat16" if "bfloat16" in (dtype, out) else "float32")
+           H if H in (ut, dtt, bct, out) else F)
+
+
+def test_selective_scan_n1_makes_no_copies(dev):
+    """At bf16 u, delta, B and C with L % 8 == 0 (the speed test's dtypes),
+    a call allocates y and nothing else, and launches K12 once."""
+    g = torch.Generator().manual_seed(3)
+    batch, dim, L = 4, 16, 1024
+    u, delta = [_rand(g, (batch, dim, L), dev, s, torch.bfloat16)
+                for s in (1.0, 0.5)]
+    A = -torch.exp(_rand(g, (dim, 1), dev, 0.5))
+    B, C = [_rand(g, (batch, 1, 1, L), dev, 1.0, torch.bfloat16)
+            for _ in "BC"]
+    D, bias = _rand(g, (dim,), dev), _rand(g, (dim,), dev, .3)
+    args = (u, delta, A, B, C, D, bias, torch.float32)
+    selective_scan_n1(*args)          # the build, and any first-call state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    y = selective_scan_n1(*args)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {"selective_scan_n1": 1}
+    assert torch.cuda.max_memory_allocated() - before == 4 * y.numel()
+    _close(y, selective_scan_n1_ref(*args), "bfloat16")
 
 
 def test_selective_scan_routes_to_its_kernels(dev):

@@ -26,7 +26,8 @@ from ceigm_unet_tpu.models import ss2d as jss2d
 from ceigm_unet_tpu.models import vmamba as jvm
 from ceigm_unet_tpu.ops import cross_scan as jcs
 from ceigm_unet_tpu.ops.quad_scan import sscan_dir as jsscan_dir
-from ceigm_unet_tpu.ops.scan_pallas import scan_pallas
+from ceigm_unet_tpu.ops.scan_pallas import (scan_pallas,
+                                            selective_scan_fused_n1)
 from ceigm_unet_tpu.ops.selective_scan import selective_scan as jselscan
 from ceigm_unet_tpu_torch.convert import jax_import
 from ceigm_unet_tpu_torch.eval.volume import predict_volume
@@ -278,6 +279,47 @@ def test_selective_scan_n1_is_the_general_scan_at_n1():
     plain = selective_scan(u, sp, A, B, C, D)
     np.testing.assert_allclose(fused.numpy(), plain.numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_selective_scan_n1_matches_fused_n1_across_l_blocks(dtype):
+    """The port's fused N = 1 op (its plain version on the CPU) against the
+    JAX kernel in interpret mode at L 2304, which the JAX kernel walks as 3
+    L-blocks of 768 with its scratch carry: A = -exp(-8) and a delta bias
+    near -2 keep each step's decay within 1e-4 of 1, so the state crosses
+    both block boundaries."""
+    rng = np.random.default_rng(13)
+    batch, dim, G, L = 2, 8, 2, 2304
+    M, dg = batch * dim, dim // G
+    raw = dict(u=rng.standard_normal((batch, dim, L)),
+               delta=rng.standard_normal((batch, dim, L)) * 0.5,
+               B=rng.standard_normal((batch, G, 1, L)),
+               C=rng.standard_normal((batch, G, 1, L)))
+    x = {k: _both(v, dtype) for k, v in raw.items()}
+    A = np.full((dim, 1), -np.exp(-8.0))
+    D, bias = rng.standard_normal(dim), rng.standard_normal(dim) * 0.3 - 2
+    got = selective_scan_n1(*[x[k][1] for k in ("u", "delta")], _t(A),
+                            x["B"][1], x["C"][1], _t(D), _t(bias),
+                            torch.float32)
+    rows = lambda bc: jnp.repeat(bc[:, :, 0], dg, axis=1).reshape(M, L)
+    want = selective_scan_fused_n1(
+        x["u"][0].reshape(M, L), x["delta"][0].reshape(M, L),
+        jnp.tile(jnp.asarray(A[:, 0], jnp.float32), batch),
+        rows(x["B"][0]), rows(x["C"][0]),
+        jnp.tile(jnp.asarray(D, jnp.float32), batch),
+        jnp.tile(jnp.asarray(bias, jnp.float32), batch),
+        out_dtype=jnp.float32, interpret=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _f32(want).reshape(batch, dim, L),
+                               **TOL[dtype])
+
+
+def test_selective_scan_n1_refuses_constants_of_another_width():
+    """D and delta_bias must be (dim,): the kernel reads dim of each."""
+    u, bc, A = torch.zeros(2, 4, 9), torch.zeros(2, 1, 9), -torch.ones(4, 1)
+    for opt in ({"D": torch.ones(3)}, {"delta_bias": torch.ones(4, 1)}):
+        with pytest.raises(ValueError, match="selective_scan_n1"):
+            selective_scan_n1(u, u, A, bc, bc, **opt)
 
 
 def test_scan_wrappers_refuse_devices_without_kernels():
