@@ -5,14 +5,16 @@ volume's slices go to the model's device in batches; each batch is zoomed
 to the patch size (exact scipy order-3 zoom as matrix products),
 normalised, run through the model, argmaxed and zoomed back with scipy's
 order-0 index map. The host touches the data twice: upload and download.
+``eval_single_volume`` scores the map with ``SegMeter`` on the host.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ceigm_unet_tpu_torch.eval.metrics import SegMeter
 from ceigm_unet_tpu_torch.ops.resize import zoom_slices, zoom_slices_nearest
 
 
@@ -44,3 +46,15 @@ def predict_volume(model: torch.nn.Module, volume: np.ndarray,
         preds.append(_predict_batch(model, chunk, tuple(patch_size),
                                    (H, W)).cpu().numpy())
     return np.concatenate(preds)[:D]
+
+
+def eval_single_volume(model: torch.nn.Module, volume: np.ndarray,
+                       label: np.ndarray, num_classes: int,
+                       patch_size: Tuple[int, int] = (224, 224),
+                       batch_size: int = 32) -> Dict:
+    """Reference ``eval_single_volume`` (eval.py:47-88): the volume's
+    per-class dice as ``{"dice": {class_name: [value]}}``."""
+    pred = predict_volume(model, volume, patch_size, batch_size)
+    meter = SegMeter(num_classes=num_classes)
+    meter(pred[None], np.asarray(label)[None])
+    return meter.get_metric()

@@ -68,3 +68,14 @@ def zoom_slices_nearest(x: torch.Tensor,
                                                 .to(dev)]
     mask = torch.from_numpy(np.outer(vh, vw)).to(dev)
     return torch.where(mask, y, torch.zeros_like(y))
+
+
+def zoom_host(img: np.ndarray, out_hw: Tuple[int, int],
+              order: int = 3) -> np.ndarray:
+    """scipy-parity zoom of one 2-D slice on the host, numpy in and out
+    (float32): :func:`zoom_slices_nearest` for order 0, else
+    :func:`zoom_slices`, on a CPU tensor."""
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    y = zoom_slices_nearest(x, out_hw) if order == 0 else zoom_slices(
+        x, out_hw, order)
+    return y.numpy()

@@ -14,6 +14,8 @@ exits non-zero without its last line:
    contiguous operands and on a long-memory input whose state carries across
    every chunk of a 56x56 walk), at batch 2 in fp32 (TF32 off; rtol 1e-4, atol
    1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|), and at
+   batch 32 in fp32 (the fp32 tolerance; the batch and dtype of phase 21's
+   test-set path, and the one fp32 check of the SIMT GEMM at a large M) and
    batch 128 in bf16 (same bf16 tolerance; the batch of phase 6, large enough
    that every grid-stride loop repeats), where kernel and plain version are
    also timed with CUDA events; ``cffn_gemm`` is held tighter: its fp32 output
@@ -125,17 +127,40 @@ exits non-zero without its last line:
    on a batch of 2, card against CPU (fp32 gradients at phase 8's
    tolerance, those of bf16 inputs at the bf16 one), K11 launched exactly
    twice per backward on both routes; then the backward at phase 13's full
-   batch timed beside K11's two calls.
+   batch timed beside K11's two calls;
+21. test-set inference (this slice's main path), fp32 with TF32 off:
+   (a) a seeded 9-class gm_tiny saved as a Lightning file and read back
+   by ``convert.checkpoint.load_model`` on the card, every tensor bitwise
+   equal; (b) ``cli.inference.run_inference`` with an exact predictor
+   (one-hot logits of the rounded raw voxel) on two 40 x 512 x 512 cases
+   whose voxels are class ids, at patch 512 x 512 (the zoom is the
+   identity): dice 1, jaccard 1, hd95 0, asd 0 for every class; (c) the
+   loaded gm_tiny on two Synapse-like 40 x 512 x 512 cases (blob labels
+   with every organ present; real cases hold 85-198 slices): every value
+   finite, or NaN where the prediction holds no voxel of the class, K1/K3/
+   K4/K5 launched forwards x ``PER_FORWARD`` (counters reset just before,
+   read just after), ms per case of ``predict_volume`` and of the host
+   metrics, fp32 slices/s; the b32 fp32 logits of case 0's first batch
+   against the same model on the CPU (phase 4's tolerance), and that
+   forward's wall time, the host's time to issue it, its device kernel time
+   (torch.profiler), idle share and the card's clocks and power; (d) ``cli.inference.main`` on two ACDC-format
+   ``test`` cases of 10 x 256 x 216 with a 4-class checkpoint: it returns,
+   its log ends with the ``global:`` line, launches forwards x
+   ``PER_FORWARD``.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
 10 and 14 also with ``device_ms`` and ``library_device_ms``, the same
-calls timed as the device's work alone); the last line is
+calls timed as the device's work alone; K1-K5 also with
+``launches_test_set``, their launches on phase 21's path, and
+``max_abs_err_b32_fp32``, phase 3's check at that path's batch and dtype);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -150,6 +175,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 IMG = 224
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 5e-2)}
+DTAG = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 # cffn_gemm: kernel and plain version round the same inputs to bf16 and sum
 # in fp32, so its fp32 output holds the fp32 tolerance and its bf16 output
 # two bf16 ulps; either fails a kernel that drops K = 348's last 28 columns
@@ -407,18 +433,19 @@ def kernel_cases(dev):
     }
 
 
-def phase_kernels(dev, gpu, kernels, per="forward"):
+def phase_kernels(dev, gpu, kernels, per="forward", extra=()):
     """Each kernel of ``kernels`` (as :func:`kernel_cases` gives them)
-    against its plain version at b2 fp32, b2 bf16 and b128 bf16, and timed
-    at b128 bf16 per ``per`` (the forward, or the backward of one): with
-    the host in the loop (``ms``, ``library_ms``) and as the device's work
-    alone, the calls queued behind a spin kernel (``device_ms``,
-    ``library_device_ms``)."""
+    against its plain version at b2 fp32, b2 bf16, each (batch, dtype) of
+    ``extra`` and b128 bf16, and timed at b128 bf16 per ``per`` (the
+    forward, or the backward of one): with the host in the loop (``ms``,
+    ``library_ms``) and as the device's work alone, the calls queued behind
+    a spin kernel (``device_ms``, ``library_device_ms``)."""
     from ceigm_unet_tpu_torch.kernel_ab import device_time
     results = {}
     bf16 = torch.bfloat16
     for name, (route, source, replaces, cases) in kernels.items():
-        errs = {(2, torch.float32): 0.0, (2, bf16): 0.0, (128, bf16): 0.0}
+        errs = dict.fromkeys([(2, torch.float32), (2, bf16), *extra,
+                              (128, bf16)], 0.0)
         ms = plain_ms = bound = bytes_ms = ops_ms = dev_ms = 0.0
         library_ms = library_dev_ms = None
         for tag, calls, make in cases:
@@ -448,9 +475,9 @@ def phase_kernels(dev, gpu, kernels, per="forward"):
                 f"{case.bound_ms():.4f} ms ({case.bound_by()}), max abs err "
                 f"{err:.3e} | {gpu}")
             del case
-        log(f"kernel {name}: max abs err b2 fp32 "
-            f"{errs[2, torch.float32]:.3e}, b2 bf16 {errs[2, bf16]:.3e}, "
-            f"b128 bf16 {errs[128, bf16]:.3e}; per b128 bf16 {per} "
+        log(f"kernel {name}: max abs err " + ", ".join(
+            f"b{b} {DTAG[d]} {e:.3e}" for (b, d), e in errs.items())
+            + f"; per b128 bf16 {per} "
             f"{ms:.3f} ms (device {dev_ms:.3f} ms) vs plain "
             f"{plain_ms:.3f} ms, library {library_ms} (device "
             f"{library_dev_ms}), bound {bound:.4f} ms")
@@ -458,7 +485,9 @@ def phase_kernels(dev, gpu, kernels, per="forward"):
             name=name, route=route, source=source, replaces=replaces,
             max_abs_err=errs[2, torch.float32],
             max_abs_err_bf16=errs[2, bf16],
-            max_abs_err_bf16_b128=errs[128, bf16], ms=ms, plain_ms=plain_ms,
+            max_abs_err_bf16_b128=errs[128, bf16],
+            **{f"max_abs_err_b{b}_{DTAG[d]}": errs[b, d] for b, d in extra},
+            ms=ms, plain_ms=plain_ms,
             bound_ms=bound,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=library_ms, device_ms=dev_ms,
@@ -1626,6 +1655,265 @@ def phase_selective_scan_backward(dev, gpu):
     return total
 
 
+# --- phase 21: test-set inference ------------------------------------------
+
+TEST_DEPTH = 40                 # slices per case; real Synapse cases: 85-198
+TEST_BATCH = 32                 # predict_volume's batch
+ACDC_SHAPE = (10, 256, 216)
+
+
+class ExactPredictor(torch.nn.Module):
+    """One-hot logits of round(raw): undoes ``predict_volume``'s
+    (x - 0.5) / 0.5, so a volume whose voxels are class ids comes back as
+    its own label map. Its one parameter fixes its device."""
+
+    def __init__(self, num_classes, dev):
+        super().__init__()
+        self.onehot = torch.nn.Parameter(
+            torch.eye(num_classes, device=dev) * 10.0, requires_grad=False)
+
+    def forward(self, x):
+        raw = x[..., 0] * 0.5 + 0.5
+        n = self.onehot.shape[0]
+        return self.onehot[torch.round(raw).clamp(0, n - 1).long()]
+
+
+def blob_cases(n, shape, num_classes, seed):
+    """``n`` cases of ``shape`` (D, H, W): ``entry.synthetic_batch``'s blob
+    labels (every foreground class drawn in every slice) and its raw image
+    (the label's intensity plus noise, before (x - 0.5) / 0.5), cut to W."""
+    from ceigm_unet_tpu_torch.entry import synthetic_batch
+    D, H, W = shape
+    cases = []
+    for i in range(n):
+        b = synthetic_batch(D, H, num_classes, seed=seed + i, device="cpu")
+        label = b["label"].numpy()[..., :W]
+        if len(np.unique(label)) != num_classes:
+            fail(f"synthetic case {i}: classes {np.unique(label)}")
+        cases.append({"image": (b["image"][..., 0].numpy()[..., :W] * 0.5
+                                + 0.5).astype(np.float32),
+                      "label": label, "case_name": f"case{i:04d}"})
+    return cases
+
+
+def lightning_save(model, num_classes, path):
+    """The model's state_dict as a Lightning checkpoint stores it, beside
+    its hyperparameters."""
+    torch.save({"state_dict": {"_model." + k: v.cpu() for k, v in
+                               model.state_dict().items()},
+                "hyper_parameters": {"num_classes": num_classes}}, path)
+
+
+def fmt_ms(times) -> str:
+    return ", ".join(f"{t:.1f}" for t in times)
+
+
+def timed_inference(cases, model, logger, patch):
+    """``cli.inference.run_inference`` over ``cases`` with each case's
+    ``predict_volume`` timed (it returns host arrays, so each call ends
+    synchronised). Returns (summary, global means, predict ms per case, host
+    metrics ms per case, the class maps)."""
+    from ceigm_unet_tpu_torch.cli import inference
+    predict = inference.predict_volume
+    pred_ms, maps, case_ms = [], [], []
+
+    def timed_predict(*args, **kw):
+        t = time.perf_counter()
+        maps.append(predict(*args, **kw))
+        pred_ms.append((time.perf_counter() - t) * 1e3)
+        return maps[-1]
+
+    class Marks(list):              # run_inference reads cases in order
+        def __getitem__(self, i):
+            case_ms.append(time.perf_counter() * 1e3)
+            return list.__getitem__(self, i)
+
+    inference.predict_volume = timed_predict
+    try:
+        summary, glob = inference.run_inference(Marks(cases), model, 9,
+                                                logger, patch_size=patch)
+    finally:
+        inference.predict_volume = predict
+    case_ms.append(time.perf_counter() * 1e3)
+    metric_ms = [b - a - p for a, b, p in zip(case_ms, case_ms[1:], pred_ms)]
+    return summary, glob, pred_ms, metric_ms, maps
+
+
+def forward_breakdown(model, x, reps: int = 3) -> str:
+    """Where one forward's time goes, in this process: wall time by CUDA
+    events, the host's time to issue it (the call returns before the card
+    is done unless the launch queue fills), the card's kernel time summed
+    by torch.profiler, and the card's clocks, power and temperature."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        wall = time_ms(lambda: model(x), 5)
+        issue = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                model(x)
+            torch.cuda.synchronize()
+    kernel = sum(getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 ) / 1e3 / reps
+    if kernel <= 0:
+        fail("forward profile: the profiler saw no device time")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    return (f"wall {wall:.3f} ms (CUDA events, mean of 5), host issue "
+            f"{statistics.median(issue):.3f} ms (median of {reps}), device "
+            f"kernels {kernel:.3f} ms (torch.profiler, mean of {reps}), idle "
+            f"share {max(0.0, 1 - kernel / wall):.3f}; SM clock, max SM "
+            f"clock, power, temperature: {clocks}")
+
+
+def phase_test_set(dev, gpu):
+    """Phase 21 (see the module docstring). Returns the launches of (c)
+    and (d) together."""
+    import tempfile
+    from ceigm_unet_tpu_torch.cli import inference
+    from ceigm_unet_tpu_torch.convert.checkpoint import load_model
+    from ceigm_unet_tpu_torch.eval.volume import predict_volume
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.ops.resize import zoom_slices
+    from ceigm_unet_tpu_torch.train.loop import setup_logger
+    with tempfile.TemporaryDirectory() as tmp:
+        logger = setup_logger(os.path.join(tmp, "logs"), "inference_synapse")
+        # (a) the Lightning checkpoint round trip
+        saved = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                            device="cpu")
+        ckpt = os.path.join(tmp, "gm_tiny_synapse.ckpt")
+        lightning_save(saved, 9, ckpt)
+        model = load_model(ckpt, 9, device=dev)
+        want, got = saved.state_dict(), model.state_dict()
+        if list(got) != list(want):
+            fail("loaded checkpoint: keys differ")
+        for k, v in want.items():
+            if (got[k].device.type != torch.device(dev).type
+                    or not torch.equal(got[k].cpu(), v)):
+                fail(f"loaded checkpoint: {k} differs from the saved tensor")
+        log(f"test set (a): Lightning checkpoint of gm_tiny ({len(want)} "
+            f"tensors) loaded on the card bitwise equal")
+
+        # (b) the exact predictor: zoom, argmax, zoom-back and metrics
+        cases = blob_cases(2, (TEST_DEPTH, 512, 512), 9, SEED + 20)
+        exact = [dict(c, image=c["label"].astype(np.float32)) for c in cases]
+        summary, glob, pred_ms, metric_ms, _ = timed_inference(
+            exact, ExactPredictor(9, dev), logger, (512, 512))
+        perfect = {"dice": 1.0, "jaccard": 1.0, "hd95": 0.0, "asd": 0.0}
+        for name, m in list(summary.items()) + [("global", glob)]:
+            if m != perfect:
+                fail(f"exact predictor: {name} scores {m}, expected "
+                     f"{perfect}")
+        log(f"test set (b): exact predictor, 2 cases {cases[0]['label'].shape}"
+            f", patch 512: all 8 classes and global dice 1 jaccard 1 hd95 0 "
+            f"asd 0; predict_volume {fmt_ms(pred_ms)} ms, host metrics (every "
+            f"class on both sides) {fmt_ms(metric_ms)} ms per case")
+
+        # (c) the loaded gm_tiny on two Synapse-like cases, fp32
+        predict_volume(model, cases[0]["image"][:32])          # warm-up
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        summary, glob, pred_ms, metric_ms, maps = timed_inference(
+            cases, model, logger, (IMG, IMG))
+        counts = dict(_build.launch_counts)
+        forwards = -(-TEST_DEPTH // TEST_BATCH)
+        check_counts(counts, 2 * forwards, "test set: gm_tiny on 2 cases")
+        for name, (idx, _) in inference.CLASS_COLOR_MAPS[9].items():
+            # the label holds every class; hd95 and asd are NaN exactly
+            # where no case's prediction holds it
+            predicted = any(bool((p == idx).any()) for p in maps)
+            for k, v in summary[name].items():
+                if math.isfinite(v) != (predicted or k in ("dice",
+                                                           "jaccard")):
+                    fail(f"test set: {name} {k} = {v} (predicted: "
+                         f"{predicted})")
+        if not (math.isfinite(glob["dice"]) and math.isfinite(glob["jaccard"])
+                and math.isfinite(glob["hd95"]) == any(map(np.any, maps))):
+            fail(f"test set: global {glob}")
+        card = sum(pred_ms) / (sum(pred_ms) + sum(metric_ms))
+        log(f"test set (c): gm_tiny fp32 on 2 Synapse-like cases "
+            f"{cases[0]['label'].shape}, batch {TEST_BATCH} ({forwards} "
+            f"forward(s) per case, the last padded): predict_volume "
+            f"{fmt_ms(pred_ms)} ms per case "
+            f"({TEST_DEPTH * 1e3 / statistics.mean(pred_ms):.2f} slices/s "
+            f"fp32), host metrics {fmt_ms(metric_ms)} ms per case "
+            f"(predict_volume's share of run_inference {card:.4f}); global "
+            f"{glob}; launches {counts} | {gpu}")
+        # the first batch of case 0 as predict_volume hands it to the model
+        # (launches already read): card against CPU, then the forward timed
+        x = (zoom_slices(torch.from_numpy(
+            cases[0]["image"][:TEST_BATCH]), (IMG, IMG)) - 0.5) / 0.5
+        x = x[..., None]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = saved(x)
+        cpu_s = time.perf_counter() - t0
+        x = x.to(dev)
+        with torch.no_grad():
+            got = model(x).cpu()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        rtol, atol = MODEL_TOL
+        if (got.shape != want.shape or not bool(torch.isfinite(got).all())
+                or bool(((got - want).abs() > atol * scale
+                         + rtol * want.abs()).any())):
+            fail(f"test set: b{TEST_BATCH} fp32 logits of the loaded gm_tiny"
+                 f" differ from the CPU: max abs err {err:.3e}, max|logit| "
+                 f"{scale:.3e}")
+        log(f"test set (c): b{TEST_BATCH} fp32 logits of case 0's first "
+            f"batch, card vs CPU max abs err {err:.3e} (max|logit| "
+            f"{scale:.3e}, tol rtol {rtol} atol {atol}*max); CPU forward "
+            f"{cpu_s:.1f} s")
+        del saved
+        log(f"test set (c): b{TEST_BATCH} fp32 forward: "
+            + forward_breakdown(model, x) + f" | {gpu}")
+        del model
+
+        # (d) the ACDC command line on .npz files
+        data, lists = os.path.join(tmp, "ACDC"), os.path.join(tmp, "lists")
+        os.makedirs(os.path.join(data, "test"))
+        os.makedirs(lists)
+        names = []
+        for c in blob_cases(2, ACDC_SHAPE, 4, SEED + 30):
+            names.append(c["case_name"] + "_volume_ED.npz")
+            np.savez(os.path.join(data, "test", names[-1]), img=c["image"],
+                     label=c["label"].astype(np.float32))
+        with open(os.path.join(lists, "test.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        acdc_ckpt = os.path.join(tmp, "gm_tiny_acdc.pth")
+        lightning_save(build_model(num_classes=4, enc_name="gm_tiny",
+                                   seed=SEED, device="cpu"), 4, acdc_ckpt)
+        log_dir = os.path.join(tmp, "logs")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = inference.main(["acdc", "--ckpt", acdc_ckpt, "--data-dir", data,
+                              "--list-dir", lists, "--log-dir", log_dir])
+        acdc_s = time.perf_counter() - t0
+        acdc_counts = dict(_build.launch_counts)
+        check_counts(acdc_counts, 2, "test set: the ACDC command line")
+        with open(os.path.join(log_dir, "inference_acdc.log")) as f:
+            last = f.read().splitlines()[-1]
+        if out is None or "| global: dice " not in last:
+            fail(f"ACDC command line: last log line {last!r}")
+        log(f"test set (d): ACDC command line, 2 cases {ACDC_SHAPE} (one "
+            f"forward of 32 each): {acdc_s:.1f} s; {last.split('| ')[-1]}; "
+            f"launches {acdc_counts}")
+    return {k: counts.get(k, 0) + acdc_counts.get(k, 0)
+            for k in set(counts) | set(acdc_counts)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1648,7 +1936,9 @@ def main() -> int:
 
     timed("2 build", _build.library)
     log(f"build: {_build.build().name}")
-    kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev))
+    # b32 fp32: the batch and dtype of the test-set path (phase 21)
+    kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev),
+                    "forward", [(TEST_BATCH, torch.float32)])
     model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
     base = timed("6 throughput", phase_throughput, model, dev, gpu)
@@ -1677,6 +1967,7 @@ def main() -> int:
                             gpu)
     scan_bwd = timed("20 selective_scan backward",
                      phase_selective_scan_backward, dev, gpu)
+    test_set = timed("21 test-set inference", phase_test_set, dev, gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -1691,7 +1982,11 @@ def main() -> int:
              "grid_sample_bilinear": kernel_route, "quad_scan_ln_q8": int8}
     for name in kernels:
         kernels[name]["launches"] = paths.get(name, serving).get(name, 0)
-    if any(k["launches"] == 0 for k in kernels.values()):
+    # and on the test-set path (phase 21), K1-K5
+    for name in PER_FORWARD:
+        kernels[name]["launches_test_set"] = test_set.get(name, 0)
+    if any(k["launches"] == 0 or k.get("launches_test_set") == 0
+           for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -451,7 +451,14 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.ops.cross_scan, "
             "ceigm_unet_tpu_torch.ops.selective_scan, "
             "ceigm_unet_tpu_torch.ops.dwconv, "
-            "ceigm_unet_tpu_torch.kernel_ab; "
+            "ceigm_unet_tpu_torch.kernel_ab, "
+            "ceigm_unet_tpu_torch.eval.metrics, "
+            "ceigm_unet_tpu_torch.eval.plot, "
+            "ceigm_unet_tpu_torch.data.datasets, "
+            "ceigm_unet_tpu_torch.convert.checkpoint, "
+            "ceigm_unet_tpu_torch.train.loop, "
+            "ceigm_unet_tpu_torch.cli.inference, "
+            "ceigm_unet_tpu_torch.cli.calc_params; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
             "from ceigm_unet_tpu_torch.entry import legacy_train_entry; "
             "from ceigm_unet_tpu_torch.ops.grid_sample import "

@@ -1,9 +1,10 @@
 """Where the time of the port's forward goes, on an NVIDIA card.
 
-    python tools/profile_port.py [--out DIR]
+    python tools/profile_port.py [--out DIR] [--fp32] [--batch N]
 
-Builds the seeded gm_tiny model (224x224, 9 classes, bf16), warms up, then
-traces 3 batch-128 forwards with torch.profiler. Prints the wall time per forward, the
+Builds the seeded gm_tiny model (224x224, 9 classes, bf16; with --fp32 in
+fp32 with TF32 off, as the test-set CLI serves it), warms up, then
+traces 3 forwards (batch 128, or N) with torch.profiler. Prints the wall time per forward, the
 summed device-kernel time per forward, the device idle share
 (1 - kernel time / wall time), the kernels by device time, and the wall
 time of the tensors the forward rebuilds from the weights alone on every
@@ -42,8 +43,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="directory for profile.txt and trace.json")
+    ap.add_argument("--fp32", action="store_true",
+                    help="compute in fp32 with TF32 off (default: bf16)")
+    ap.add_argument("--batch", type=int, default=128)
     args = ap.parse_args()
-    batch, iters = 128, 3
+    batch, iters = args.batch, 3
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA device", file=sys.stderr)
         return 1
@@ -53,7 +58,10 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    model = build_model(dtype=torch.bfloat16, device="cuda")
+    if args.fp32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    model = build_model(dtype=dtype, device="cuda")
     x = torch.randn((batch, 224, 224, 1), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(1))
     with torch.no_grad():
@@ -82,7 +90,8 @@ def main() -> int:
                                  getattr(e, "cuda_time_total", 0.0))
     events.sort(key=dev_time, reverse=True)
     kernel_ms = sum(dev_time(e) for e in events) / 1e3 / iters
-    lines = [f"profile: gm_tiny b{batch} 224x224 bf16 | {gpu}",
+    lines = [f"profile: gm_tiny b{batch} 224x224 "
+             f"{'fp32' if args.fp32 else 'bf16'} | {gpu}",
              f"wall {wall * 1e3:.3f} ms/forward, device kernels "
              f"{kernel_ms:.3f} ms/forward, idle share "
              f"{max(0.0, 1 - kernel_ms / (wall * 1e3)):.3f}",
