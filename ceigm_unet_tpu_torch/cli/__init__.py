@@ -1,1 +1,2 @@
-"""Command-line tools: test-set inference and the parameter count."""
+"""Command-line tools: training (Synapse, ACDC), test-set inference and the
+parameter count."""

@@ -17,7 +17,6 @@ convolutions while a split is scored.
 from __future__ import annotations
 
 import argparse
-import contextlib
 from collections import defaultdict
 from typing import Dict
 
@@ -29,7 +28,7 @@ from ceigm_unet_tpu_torch.eval.metrics import (CLASS_COLOR_MAPS, dice_binary,
                                                jaccard_binary,
                                                surface_metrics)
 from ceigm_unet_tpu_torch.eval.volume import predict_volume
-from ceigm_unet_tpu_torch.train.loop import setup_logger
+from ceigm_unet_tpu_torch.train.loop import no_tf32, setup_logger
 
 METRICS = ("dice", "hd95", "jaccard", "asd")
 
@@ -76,21 +75,6 @@ def run_inference(dataset, model: torch.nn.Module, num_classes: int, logger,
     logger.info("global: " + " ".join(
         f"{k} {v:.4f}" for k, v in global_means.items()))
     return summary, global_means
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """fp32 matrix products and convolutions in full fp32 (TF32 off) inside
-    the block; PyTorch's settings come back after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def test_synapse(ckpt: str, data_dir: str, list_dir: str, log_dir: str,

@@ -1,1 +1,2 @@
-"""Weight bridges between the JAX package's variables and the port."""
+"""Weights in and out: the bridge from the JAX package's variables,
+Lightning checkpoints, and pretrained encoder checkpoints."""

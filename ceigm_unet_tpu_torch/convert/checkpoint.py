@@ -1,15 +1,18 @@
-"""Reference (PyTorch Lightning) checkpoints -> the port's model.
+"""Reference (PyTorch Lightning) checkpoints: the port's model in and out.
 
 The port's ``state_dict`` keys are the reference's, so a Lightning file
 loads with no conversion once its ``_model.`` prefix is stripped (reference
-inference.get_model, inference.py:175-221). The JAX package's own orbax
-directories need orbax and JAX; ``convert/jax_import.py`` bridges JAX
-variables, and :func:`load_model` refuses such a directory.
+inference.get_model, inference.py:175-221), and the training loop saves
+its checkpoints in that format (:func:`save_checkpoint`), which
+:func:`load_model` and the JAX package's ``load_variables`` read back. The
+JAX package's own orbax directories need orbax and JAX;
+``convert/jax_import.py`` bridges JAX variables, and :func:`load_model`
+refuses such a directory.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -50,3 +53,28 @@ def load_model(ckpt_path: str, num_classes: int, enc_name: str = "gm_tiny",
                        f"{missing}, unexpected keys {unexpected}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def save_checkpoint(ckpt_dir: str, name: str, model: torch.nn.Module,
+                    step: int, epoch: int,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``<ckpt_dir>/<name>.ckpt`` as Lightning lays one out: the
+    model's ``state_dict`` (parameters and BatchNorm buffers, on the CPU)
+    under ``_model.``, ``global_step`` (the optimizer's step count, which
+    the LR schedule reads), ``epoch`` and the scalars of ``extra``. The file
+    is written whole and then renamed into place. Returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, name + ".ckpt")
+    payload = {"state_dict": {"_model." + k: v.detach().cpu()
+                              for k, v in model.state_dict().items()},
+               "global_step": int(step), "epoch": int(epoch)}
+    payload.update(extra or {})
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The payload :func:`save_checkpoint` wrote (tensors on the CPU)."""
+    return torch.load(path, map_location="cpu", weights_only=True)

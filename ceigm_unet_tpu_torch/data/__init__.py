@@ -1,1 +1,2 @@
-"""Dataset readers for the Synapse and ACDC splits."""
+"""Training and evaluation data: the Synapse and ACDC readers, the host
+augmentation policy, the batch loader and the on-device augmentation."""

@@ -11,8 +11,11 @@
 A sample is ``{"image", "label", "case_name"}``: image float32 (H, W) or
 (D, H, W), label float32, as the reference's tensors before its
 torchvision transforms; the normalisation (x - 0.5) / 0.5 belongs to the
-model's caller. Train-split augmentation is not ported yet: asking for it
-raises rather than giving unaugmented samples.
+model's caller. A train split with ``augment`` runs ``data/augment.py``'s
+policy on the raw slice before the zoom, from the generator ``get`` is
+given. Warps and zooms run on the native library
+(``ceigm_unet_tpu_torch/native``), which the constructor of a split that
+uses it builds, so that loader workers find it built.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Any, Dict
 
 import numpy as np
 
+from ceigm_unet_tpu_torch import native as native_lib
+from ceigm_unet_tpu_torch.data.augment import augment_seg
 from ceigm_unet_tpu_torch.ops.resize import zoom_host
 
 
@@ -72,23 +77,30 @@ class _SplitDataset:
                  img_size: int, augment: bool, seed: int,
                  deep_supervision_scales, keep_raw_size: bool):
         """``keep_raw_size``: train slices at their source resolution, with
-        no host zoom. ``seed`` seeds the train split's augmentation in the
-        JAX package; it is accepted and unused until that is ported."""
-        if augment and split == "train":
-            raise NotImplementedError(
-                "train-split augmentation (data/augment.py and its native "
-                "warp) is not ported yet (ROADMAP A5); pass augment=False")
+        no host zoom (the on-device augmentation's feed). ``seed`` seeds
+        the generator ``get`` falls back to when given none."""
         self.base_dir = base_dir
         self.split = split
         self.img_size = img_size
         self.samples = _read_list(list_dir, split)
+        self.augment = augment and split == "train"
+        self.rng = np.random.default_rng(seed)
         self.deep_supervision_scales = deep_supervision_scales
         self.keep_raw_size = keep_raw_size
+        if split in ("train", "valid"):   # warped or zoomed here
+            native_lib.build()
 
     def __len__(self):
         return len(self.samples)
 
-    def _sample(self, image, label, name) -> Dict[str, Any]:
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        return self.get(idx)
+
+    def _sample(self, image, label, name, rng, zoom) -> Dict[str, Any]:
+        if self.augment:
+            image, label = augment_seg(rng, image, label)
+        if zoom and not self.keep_raw_size:
+            image, label = _zoom_pair(image, label, self.img_size)
         out = {"image": image, "label": label, "case_name": name}
         if self.deep_supervision_scales is not None:
             out["label_pyramid"] = make_label_pyramid(
@@ -105,21 +117,24 @@ class SynapseDataset(_SplitDataset):
         super().__init__(base_dir, split, list_dir, img_size, augment, seed,
                          deep_supervision_scales, keep_raw_size)
 
-    def __getitem__(self, idx: int) -> Dict[str, Any]:
+    def get(self, idx: int, rng=None) -> Dict[str, Any]:
+        """Sample ``idx``, augmented from ``rng`` (the dataset's own
+        generator when None): the loader hands each sample a generator of
+        its (seed, epoch, index), so samples do not depend on which worker
+        reads them."""
+        rng = self.rng if rng is None else rng
         name = self.samples[idx]
         if self.split == "train":
             with np.load(os.path.join(self.base_dir, name + ".npz")) as data:
                 image = np.asarray(data["image"], np.float32)
                 label = np.asarray(data["label"], np.float32)
-            if not self.keep_raw_size:
-                image, label = _zoom_pair(image, label, self.img_size)
-        else:
-            import h5py
-            path = os.path.join(self.base_dir, f"{name}.npy.h5")
-            with h5py.File(path, "r") as f:
-                image = np.asarray(f["image"][:], np.float32)
-                label = np.asarray(f["label"][:], np.float32)
-        return self._sample(image, label, name)
+            return self._sample(image, label, name, rng, zoom=True)
+        import h5py
+        path = os.path.join(self.base_dir, f"{name}.npy.h5")
+        with h5py.File(path, "r") as f:
+            image = np.asarray(f["image"][:], np.float32)
+            label = np.asarray(f["label"][:], np.float32)
+        return self._sample(image, label, name, rng, zoom=False)
 
 
 class ACDCDataset(_SplitDataset):
@@ -131,11 +146,12 @@ class ACDCDataset(_SplitDataset):
         super().__init__(base_dir, split, list_dir, img_size, augment, seed,
                          deep_supervision_scales, keep_raw_size)
 
-    def __getitem__(self, idx: int) -> Dict[str, Any]:
+    def get(self, idx: int, rng=None) -> Dict[str, Any]:
+        """As :meth:`SynapseDataset.get`."""
+        rng = self.rng if rng is None else rng
         name = self.samples[idx]
         with np.load(os.path.join(self.base_dir, self.split, name)) as data:
             image = np.asarray(data["img"], np.float32)
             label = np.asarray(data["label"], np.float32)
-        if self.split in ("train", "valid") and not self.keep_raw_size:
-            image, label = _zoom_pair(image, label, self.img_size)
-        return self._sample(image, label, name)
+        return self._sample(image, label, name, rng,
+                            zoom=self.split in ("train", "valid"))

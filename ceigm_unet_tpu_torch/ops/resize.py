@@ -4,6 +4,8 @@ Counterpart of ``ceigm_unet_tpu/ops/resize.py``. An order-k spline zoom is a
 linear map of its input, so for fixed sizes it is one dense (out, in) matrix
 per axis, extracted on the host by pushing unit vectors through scipy once
 per shape. Order-0 (nearest) zooms are a gather with scipy's exact index map.
+On the host, :func:`zoom_host` applies a higher order's operator as a band
+through the native resize (``ceigm_unet_tpu_torch/native``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ceigm_unet_tpu_torch import native as native_lib
 
 
 @functools.lru_cache(maxsize=128)
@@ -70,11 +74,53 @@ def zoom_slices_nearest(x: torch.Tensor,
     return torch.where(mask, y, torch.zeros_like(y))
 
 
+# entries of the dense operator below this are dropped from its band
+BAND_THRESH = 1e-7
+
+
+@functools.lru_cache(maxsize=128)
+def zoom_band(in_size: int, out_size: int, order: int = 3, taps: int = 0):
+    """Banded form of :func:`zoom_matrix`: (starts int32 (out,), weights
+    float32 (out, taps), taps). Rows of the cubic operator decay as
+    |sqrt(3) - 2|^d, so dropping entries below ``BAND_THRESH`` keeps a band of
+    ~24 taps and the dense operator to ~1e-7. ``taps`` widens the band to a
+    given width (at least the natural one), so both axes of one resize can
+    share it."""
+    m = zoom_matrix(in_size, out_size, order).astype(np.float32)
+    m = np.where(np.abs(m) > BAND_THRESH, m, 0.0)
+    widths, firsts = [], []
+    for r in m:
+        nzi = np.nonzero(r)[0]
+        firsts.append(int(nzi.min()) if nzi.size else 0)
+        widths.append(int(nzi.max() - nzi.min() + 1) if nzi.size else 1)
+    natural = min(max(widths), in_size)
+    if taps and not natural <= taps <= in_size:
+        raise ValueError(f"a band of {taps} taps for {in_size} -> "
+                         f"{out_size} (natural width {natural})")
+    taps = taps or natural
+    starts = np.minimum(np.asarray(firsts, np.int64),
+                        in_size - taps).astype(np.int32)
+    weights = np.zeros((out_size, taps), np.float32)
+    for o in range(out_size):
+        weights[o] = m[o, starts[o]:starts[o] + taps]
+    return starts, weights, taps
+
+
 def zoom_host(img: np.ndarray, out_hw: Tuple[int, int],
               order: int = 3) -> np.ndarray:
     """scipy-parity zoom of one 2-D slice on the host, numpy in and out
-    (float32): :func:`zoom_slices_nearest` for order 0, else
-    :func:`zoom_slices`, on a CPU tensor."""
+    (float32). Order 0 is scipy's index map; a higher order runs the
+    extracted operator as the native banded resize (``native.sep_resize``,
+    the JAX package's loader path) where the band fits the slice, else as
+    :func:`zoom_slices` on a CPU tensor."""
+    H, W = img.shape
+    Ho, Wo = out_hw
+    if order > 0 and (H, W) != (Ho, Wo):
+        t = max(zoom_band(H, Ho, order)[2], zoom_band(W, Wo, order)[2])
+        if t <= H and t <= W:
+            ys, yw, _ = zoom_band(H, Ho, order, taps=t)
+            xs, xw, _ = zoom_band(W, Wo, order, taps=t)
+            return native_lib.sep_resize(img, ys, yw, xs, xw, t)
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
     y = zoom_slices_nearest(x, out_hw) if order == 0 else zoom_slices(
         x, out_hw, order)

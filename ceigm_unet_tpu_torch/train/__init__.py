@@ -1,1 +1,2 @@
-"""Training: configuration presets, LR schedules, the training step."""
+"""Training: configuration presets, LR schedules, the training step and
+the epoch loop."""

@@ -34,6 +34,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from ceigm_unet_tpu_torch.data.device_aug import (device_augment,
+                                                  step_generator)
 from ceigm_unet_tpu_torch.losses import dice_ce_loss
 from ceigm_unet_tpu_torch.train.lr_scheduler import cosine_annealing_lr
 
@@ -99,12 +101,23 @@ OPTIMIZERS = {
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float],
-                    ce_weight: float = 0.4, dc_weight: float = 0.6):
+                    ce_weight: float = 0.4, dc_weight: float = 0.6,
+                    device_aug_size: Optional[int] = None,
+                    aug_seed: int = 0):
     """Returns ``step(batch, freeze_encoder=False, generator=None) ->
     {"loss"}``; batch = {"image": (B, H, W, 1|3), "label": (B, H, W)} on the
     model's device. ``optimizer`` holds :func:`param_groups` (its
     ``"encoder"`` group is the one frozen). The step count, which the LR
-    schedule reads, is ``step.count``."""
+    schedule reads, is ``step.count``.
+
+    With ``device_aug_size`` the batch holds raw slices instead (not
+    augmented, not normalised, at their source size: image (B, H, W, 1)
+    float32, label (B, H, W) int), and the step runs the on-device
+    augmentation (``data/device_aug.py``: the SomeOf((0, 4)) policy and the
+    zoom to ``device_aug_size`` in one gather), then (x - 0.5) / 0.5, before
+    the forward. Its parameters come from a generator on the batch's device
+    seeded from (``aug_seed``, ``step.count``), so a step's augmentation
+    depends only on those and the batch size."""
     loss_fn = functools.partial(dice_ce_loss, ce_weight=ce_weight,
                                 dc_weight=dc_weight)
     enc = [g for g in optimizer.param_groups if g.get("name") == "encoder"]
@@ -122,12 +135,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         for g in optimizer.param_groups:
             g["lr"] = lr
         enc["weight_decay"] = 0.0 if freeze_encoder else weight_decay
+        image, label = batch["image"], batch["label"]
+        if device_aug_size is not None:
+            gen = step_generator(aug_seed, step.count, image.device)
+            img, label = device_augment(gen, image[..., 0], label,
+                                        device_aug_size)
+            image = ((img - 0.5) / 0.5)[..., None]
         optimizer.zero_grad(set_to_none=True)
         for p in enc["params"]:
             p.requires_grad_(not freeze_encoder)
         try:
-            loss = loss_fn(model(batch["image"], generator=generator),
-                           batch["label"])
+            loss = loss_fn(model(image, generator=generator), label)
             loss.backward()
         finally:
             for p in enc["params"]:

@@ -13,9 +13,10 @@ exits non-zero without its last line:
    as strided (B, L, K, D) GEMM outputs, Bs and Cs as x_dbl slices; K1 also on
    contiguous operands and on a long-memory input whose state carries across
    every chunk of a 56x56 walk), at batch 2 in fp32 (TF32 off; rtol 1e-4, atol
-   1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|), and at
-   batch 32 in fp32 (the fp32 tolerance; the batch and dtype of phase 21's
-   test-set path, and the one fp32 check of the SIMT GEMM at a large M) and
+   1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|), at
+   batch 32 and batch 48 in fp32 (the fp32 tolerance; the batches and dtype
+   of phase 21's test-set path and of phase 22's training, and the fp32
+   checks of the SIMT GEMM at a large M) and
    batch 128 in bf16 (same bf16 tolerance; the batch of phase 6, large enough
    that every grid-stride loop repeats), where kernel and plain version are
    also timed with CUDA events; ``cffn_gemm`` is held tighter: its fp32 output
@@ -146,15 +147,46 @@ exits non-zero without its last line:
    (torch.profiler), idle share and the card's clocks and power; (d) ``cli.inference.main`` on two ACDC-format
    ``test`` cases of 10 x 256 x 216 with a 4-class checkpoint: it returns,
    its log ends with the ``global:`` line, launches forwards x
-   ``PER_FORWARD``.
+   ``PER_FORWARD``;
+22. training from the command line (this slice's main path), gm_tiny fp32
+   (TF32 off) on synthetic Synapse-like slices written to a temporary
+   directory (the card machine has no ``h5py``: validation volumes go to
+   ``run_training`` in memory): (a) the native warp library built, one
+   worker's host augmentation + zoom of 512x512 slices to 224x224 in ms
+   per slice, and the 6-worker loader's slices/s over an epoch of 10
+   batches of 48; (b) ``train.loop.run_training`` with the Synapse preset
+   at b48 on 96 raw 512x512 slices listed 5 times (10 steps per epoch, so
+   that an epoch reaches a steady state: the workers build batches while
+   the loop issues steps), 3 epochs, the encoder frozen in
+   epoch 0, validation on one 8x512x512 volume every epoch (counters reset
+   just before, read just after: K1/K3/K4/K8 per train step, a frozen step
+   with the decoder's 14 K8 scans, K1-K5 per validation forward): finite
+   losses, the encoder's parameters bitwise unchanged in epoch 0,
+   ``-best`` and ``-last`` written; ms/step in epoch 1 (the loop's epoch
+   time less its waits for batches; the first unfrozen steps) and in epoch
+   2 (its traced wall less its waits) beside the loader's slices/s, the
+   loop's wait for each epoch's first batch and for the others, the first
+   step, peak memory, and epoch 2's training (its waits and steps) traced
+   by torch.profiler on the card's activity alone (device work and idle
+   share, which fails if the device work exceeds the wall); then
+   ``resume_from`` the ``-last`` file for one
+   epoch: the model at the first resumed step bitwise equal to the file,
+   the step count and the LR continuing; (c) ``device_augment`` on a b48
+   raw batch, card against CPU on the same sampled parameters (image at
+   the fp32 tolerance, labels exactly), timed, then one epoch of
+   ``run_training`` with ``device_aug``; (d) ``cli.train_acdc.main
+   --max-steps 2 --device cuda`` on 64 ACDC-format slices: its history
+   row, ``acdc-last.ckpt`` and the launches of 2 frozen steps.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
 10 and 14 also with ``device_ms`` and ``library_device_ms``, the same
 calls timed as the device's work alone; K1-K5 also with
 ``launches_test_set``, their launches on phase 21's path, and
-``max_abs_err_b32_fp32``, phase 3's check at that path's batch and dtype);
-the last line is
+``max_abs_err_b32_fp32`` / ``max_abs_err_b48_fp32``, phase 3's checks at
+the batch and dtype of phase 21's and phase 22's paths;
+K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
+22 (b)'s path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1914,6 +1946,448 @@ def phase_test_set(dev, gpu):
             for k in set(counts) | set(acdc_counts)}
 
 
+# --- phase 22: training from the command line -------------------------------
+
+CLI_RAW = 512                   # raw Synapse slice side
+CLI_SLICES = 96                 # raw slices written
+CLI_REPEAT = 5                  # listed 5 times: 10 steps of 48 per epoch
+CLI_WORKERS = 6                 # the reference's loader workers
+CLI_VAL_DEPTH = 8               # slices of the one validation volume
+ACDC_TRAIN_SLICES = 64          # 2 steps of ACDC's batch 32
+# launches of one frozen gm_tiny train step: 26 quad blocks forward, the
+# decoder's 7 blocks' backward (K8 twice each)
+PER_FROZEN_STEP = dict(PER_TRAIN_STEP, scan2d=FROZEN_SCANS)
+
+
+def write_synapse_train(root, slices, seed, repeat=1):
+    """``blob_cases``' slices (512x512, every organ in each) as Synapse
+    ``train_npz`` files under ``root``, listed ``repeat`` times in
+    ``root/lists/train.txt``. Returns (data dir, list dir)."""
+    data, lists = os.path.join(root, "train_npz"), os.path.join(root,
+                                                                "lists")
+    os.makedirs(data)
+    os.makedirs(lists)
+    (case,) = blob_cases(1, (slices, CLI_RAW, CLI_RAW), 9, seed)
+    names = [f"case0005_slice{i:03d}" for i in range(slices)]
+    for i, name in enumerate(names):
+        np.savez(os.path.join(data, name + ".npz"), image=case["image"][i],
+                 label=case["label"][i].astype(np.float32))
+    with open(os.path.join(lists, "train.txt"), "w") as f:
+        f.write("\n".join(names * repeat) + "\n")
+    return data, lists
+
+
+def spied_training(cfg, train_ds, val, dev, steps_per_epoch,
+                   resume_from=None, profile_epoch=None):
+    """``train.loop.run_training`` on the card, with its loader, step and
+    checkpoint writer watched: the seconds the loop waited for each batch,
+    each step's host time (the first synchronised), the model's state, step
+    count and LR at its first step, the encoder's parameters at each
+    ``-last`` save, and a torch.profiler trace of epoch ``profile_epoch``'s
+    training (its loader waits and steps) with the wall time it spans.
+    Launch counters are reset just before and read just after."""
+    from torch.profiler import ProfilerActivity, profile
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.train import loop
+    rec = dict(waits=[], steps=[], saves={}, first=None, trace=None)
+    base_loader, base_make = loop.DataLoader, loop.make_train_step
+    base_save, window = loop.save_checkpoint, {}
+
+    class Loader(base_loader):
+        def set_epoch(self, epoch):
+            super().set_epoch(epoch)
+            if epoch == profile_epoch:
+                torch.cuda.synchronize()
+                # the card's activity alone: tracing the host's ops too
+                # would slow the host that issues the steps
+                window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                window["prof"].start()
+                window["t0"] = time.perf_counter()
+
+        def __iter__(self):
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                rec["waits"].append((self.epoch, time.perf_counter() - t0))
+                yield batch
+
+    class Step:
+        def __init__(self, model, optimizer, inner):
+            self.model, self.optimizer, self.inner = model, optimizer, inner
+
+        @property
+        def count(self):
+            return self.inner.count
+
+        @count.setter
+        def count(self, value):
+            self.inner.count = value
+
+        def __call__(self, batch, **kw):
+            first = rec["first"] is None
+            if first:
+                rec["first"] = dict(count=self.inner.count, state={
+                    k: v.detach().cpu().clone()
+                    for k, v in self.model.state_dict().items()})
+            t0 = time.perf_counter()
+            out = self.inner(batch, **kw)
+            if first:
+                torch.cuda.synchronize()
+                rec["first"]["lr"] = self.optimizer.param_groups[0]["lr"]
+            rec["steps"].append(time.perf_counter() - t0)
+            if ("prof" in window and self.inner.count
+                    == (profile_epoch + 1) * steps_per_epoch):
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - window["t0"]
+                prof = window.pop("prof")
+                prof.stop()
+                rec["trace"] = (wall, device_seconds(prof))
+            return out
+
+    def make(model, optimizer, *args, **kw):
+        return Step(model, optimizer, base_make(model, optimizer, *args,
+                                                **kw))
+
+    def save(ckpt_dir, name, model, step, epoch, extra=None):
+        if name.endswith("-last"):
+            rec["saves"][epoch] = {
+                k: v.detach().cpu().clone()
+                for k, v in model.encoder.named_parameters()}
+        return base_save(ckpt_dir, name, model, step, epoch, extra)
+
+    loop.DataLoader, loop.make_train_step = Loader, make
+    loop.save_checkpoint = save
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, step = loop.run_training(cfg, train_ds, val,
+                                        resume_from=resume_from, device=dev)
+        torch.cuda.synchronize()
+        rec["wall"] = time.perf_counter() - t0
+        rec["counts"] = dict(_build.launch_counts)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        loop.DataLoader, loop.make_train_step = base_loader, base_make
+        loop.save_checkpoint = base_save
+    with open(os.path.join(cfg.log_dir, f"{cfg.name}.metrics.jsonl")) as f:
+        rec["rows"] = [json.loads(ln) for ln in f]
+    return model, step, rec
+
+
+def device_seconds(prof) -> float:
+    """Seconds of device work (kernels, copies, sets) in a stopped
+    torch.profiler trace."""
+    return sum(getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def expected_counts(frozen, unfrozen, eval_forwards):
+    """Launches of ``frozen`` and ``unfrozen`` gm_tiny train steps and
+    ``eval_forwards`` eval forwards (K5 runs only in those)."""
+    want = {}
+    for per, n in ((PER_FROZEN_STEP, frozen), (PER_TRAIN_STEP, unfrozen),
+                   (PER_FORWARD, eval_forwards)):
+        for k, v in per.items():
+            want[k] = want.get(k, 0) + v * n
+    return {k: v for k, v in want.items() if v}
+
+
+def check_training_rows(rec, what, epochs, val=True):
+    rows = rec["rows"]
+    if [r["epoch"] for r in rows] != list(epochs):
+        fail(f"{what}: history epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        if not math.isfinite(r["mean_train_loss"]) or (
+                val and not 0.0 <= r.get("val_mean_dice", -1.0) <= 1.0):
+            fail(f"{what}: history row {r}")
+
+
+def step_ms(rec, epochs, steps_per_epoch) -> float:
+    """ms per step over ``epochs``: each epoch's training time (its history
+    row, synchronised at its end) less the loop's waits for batches."""
+    rows = {r["epoch"]: r for r in rec["rows"]}
+    busy = sum(rows[e]["epoch_time_s"] for e in epochs) - sum(
+        w for e, w in rec["waits"] if e in epochs)
+    return busy * 1e3 / (len(epochs) * steps_per_epoch)
+
+
+def phase_training_cli(dev, gpu):
+    """Phase 22 (see the module docstring). Returns the launches of (b)."""
+    import dataclasses
+    import tempfile
+    from ceigm_unet_tpu_torch import native
+    from ceigm_unet_tpu_torch.cli import train_acdc
+    from ceigm_unet_tpu_torch.convert.checkpoint import (
+        load_checkpoint, strip_lightning_prefix)
+    from ceigm_unet_tpu_torch.data import device_aug
+    from ceigm_unet_tpu_torch.data.datasets import SynapseDataset
+    from ceigm_unet_tpu_torch.data.loader import DataLoader, collate
+    from ceigm_unet_tpu_torch.kernel_ab import device_time
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.train.config import SYNAPSE_CONFIG
+    from ceigm_unet_tpu_torch.train.trainstep import cosine_lr
+    spe = CLI_SLICES * CLI_REPEAT // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) host data: the native library, one worker's augmentation, and
+        # the 6-worker loader's throughput
+        built = native.library_path().exists()   # by an earlier phase
+        t0 = time.perf_counter()
+        lib = native.build()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data, lists = write_synapse_train(os.path.join(tmp, "syn"),
+                                          CLI_SLICES, SEED + 40, CLI_REPEAT)
+        write_s = time.perf_counter() - t0
+        ds = SynapseDataset(data, "train", lists, IMG, seed=SEED)
+        t0 = time.perf_counter()
+        one = [ds.get(i, np.random.default_rng([SEED, i]))
+               for i in range(TRAIN_BATCH)]
+        one_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_BATCH
+        batch = collate(one)
+        if batch["image"].shape != (TRAIN_BATCH, IMG, IMG, 1) or not bool(
+                torch.isfinite(batch["image"]).all()):
+            fail(f"host batch {tuple(batch['image'].shape)}")
+        loader = DataLoader(ds, TRAIN_BATCH, num_workers=CLI_WORKERS,
+                            seed=SEED)
+        t0 = time.perf_counter()
+        n0 = sum(b["image"].shape[0] for b in loader)      # starts workers
+        warm_s = time.perf_counter() - t0
+        loader.set_epoch(1)
+        t0 = time.perf_counter()
+        n1 = sum(b["image"].shape[0] for b in loader)
+        epoch_s = time.perf_counter() - t0
+        del loader
+        host_sps = n1 / epoch_s
+        log(f"training CLI (a): native library {lib.name} "
+            f"{'found built' if built else 'built'} in {build_s:.2f} s;"
+            f" {CLI_SLICES} raw {CLI_RAW}x{CLI_RAW} slices written (listed "
+            f"{CLI_REPEAT} times) in "
+            f"{write_s:.1f} s; host augmentation + zoom to {IMG}x{IMG} "
+            f"{one_ms:.2f} ms per slice on one core (b{TRAIN_BATCH} in "
+            f"process); {CLI_WORKERS}-worker loader: {n0} slices in "
+            f"{warm_s:.2f} s with the workers' start, then {n1} in "
+            f"{epoch_s:.3f} s = {host_sps:.1f} slices/s")
+
+        # (b) run_training, the Synapse preset at b48 fp32, on the same
+        # list
+        val = blob_cases(1, (CLI_VAL_DEPTH, CLI_RAW, CLI_RAW), 9,
+                         SEED + 41)
+        cfg = dataclasses.replace(
+            SYNAPSE_CONFIG, data_dir=data, list_dir=lists, max_epochs=4,
+            stop_epoch=3, freeze_encoder_epochs=1, val_every_early=1,
+            num_workers=CLI_WORKERS, log_dir=os.path.join(tmp, "b", "logs"),
+            ckpt_dir=os.path.join(tmp, "b", "ckpt"))
+        train_ds = SynapseDataset(data, "train", lists, IMG, seed=cfg.seed)
+        model, step, rec = spied_training(cfg, train_ds, val, dev, spe,
+                                          profile_epoch=2)
+        check_training_rows(rec, "run_training", range(3))
+        want = expected_counts(spe, 2 * spe, 3)
+        if rec["counts"] != want:
+            fail(f"run_training: launches {rec['counts']}, expected {want}")
+        init = dict(build_model(num_classes=9, enc_name=cfg.enc_name,
+                                seed=cfg.seed, device="cpu")
+                    .encoder.named_parameters())
+        if not all(torch.equal(rec["saves"][0][k], v)
+                   for k, v in init.items()):
+            fail("run_training: an encoder parameter moved in the frozen "
+                 "epoch 0")
+        moved = sum(not torch.equal(rec["saves"][2][k], v)
+                    for k, v in init.items())
+        last = os.path.join(cfg.ckpt_dir, "synapse-last.ckpt")
+        for name in ("synapse-best", "synapse-last"):
+            if not os.path.isfile(os.path.join(cfg.ckpt_dir, name + ".ckpt")):
+                fail(f"run_training: {name}.ckpt not written")
+        # epoch 1: after the first step and before the trace (stopping
+        # the profiler inside epoch 2 takes seconds of its time)
+        ms = step_ms(rec, (1,), spe)
+        # each epoch's first batch, then the batches the workers built
+        # while the loop issued steps (epochs 1-2)
+        firsts, rest = [], []
+        for e in (1, 2):
+            waits = [w for we, w in rec["waits"] if we == e]
+            firsts.append(waits[0])
+            rest += waits[1:]
+        if rec["trace"] is None or rec["trace"][1] <= 0:
+            fail(f"run_training: no device time traced in epoch 2 "
+                 f"({rec['trace']})")
+        wall, busy = rec["trace"]
+        # epoch 2's steps: its traced wall less the loop's waits in it
+        steps_s = wall - sum(w for e, w in rec["waits"] if e == 2)
+        if busy > steps_s * 1.001:
+            fail(f"run_training: {busy:.4f} s of device work traced in "
+                 f"epoch 2's {steps_s:.4f} s of steps (its wall {wall:.4f}"
+                 " s): the trace counts some work twice")
+        host_ms = [s * 1e3 for s in rec["steps"]]
+        wait_ms = 1e3 * (sum(firsts) + sum(rest)) / (2 * spe)
+        log(f"training CLI (b): run_training gm_tiny b{TRAIN_BATCH} "
+            f"{IMG}x{IMG} fp32 (TF32 off), {CLI_SLICES} raw slices listed "
+            f"{CLI_REPEAT} times ({spe} steps per epoch), 3 epochs "
+            f"(encoder frozen in epoch 0, validation on {CLI_VAL_DEPTH}x"
+            f"{CLI_RAW}x{CLI_RAW} every epoch): rows "
+            f"{[(r['epoch'], round(r['mean_train_loss'], 5), round(r['val_mean_dice'], 4), r['epoch_time_s']) for r in rec['rows']]}; "
+            f"{ms:.1f} ms/step in epoch 1 (the first unfrozen one), "
+            f"{steps_s * 1e3 / spe:.1f} in epoch 2 "
+            f"({TRAIN_BATCH / steps_s * spe:.1f} slices/s over its steps, "
+            f"{TRAIN_BATCH / wall * spe:.1f} over its wall, against the "
+            f"loader's {host_sps:.1f}); host time per step: the first "
+            f"{host_ms[0]:.1f} ms (synchronised), the other {len(host_ms) - 1}"
+            f" median {statistics.median(host_ms[1:]):.1f} (min "
+            f"{min(host_ms[1:]):.1f}, max {max(host_ms[1:]):.1f}); loader "
+            f"wait, epochs 1-2: each epoch's first batch "
+            f"{[round(w * 1e3, 1) for w in firsts]} ms, the other "
+            f"{len(rest)} mean {1e3 * sum(rest) / len(rest):.2f} ms (max "
+            f"{1e3 * max(rest):.2f}), {wait_ms:.1f} ms per step in all; "
+            f"peak memory "
+            f"{rec['peak_gib']:.2f} GiB; epoch 2's training: {wall:.3f} s "
+            f"wall, {busy:.3f} s of device work (torch.profiler), idle share "
+            f"{1 - busy / wall:.3f} ({1 - busy / steps_s:.3f} over its "
+            f"steps alone); run {rec['wall']:.1f} s; "
+            f"encoder bitwise unchanged in epoch 0, {moved} of {len(init)} "
+            f"tensors moved by epoch 2; launches {rec['counts']} | {gpu}")
+        saved = load_checkpoint(last)
+        sched = cosine_lr(cfg.lr, cfg.eta_min, cfg.max_epochs, spe)
+        del model, step, saved["state_dict"]
+        torch.cuda.empty_cache()
+
+        # resume from -last for one epoch
+        rcfg = dataclasses.replace(
+            cfg, stop_epoch=4, log_dir=os.path.join(tmp, "r", "logs"),
+            ckpt_dir=os.path.join(tmp, "r", "ckpt"))
+        model, step, rrec = spied_training(rcfg, train_ds, val, dev, spe,
+                                           resume_from=last)
+        check_training_rows(rrec, "resumed run_training", [3])
+        want_sd = strip_lightning_prefix(load_checkpoint(last)["state_dict"])
+        first = rrec["first"]
+        if list(first["state"]) != list(want_sd) or not all(
+                torch.equal(first["state"][k], v) for k, v in want_sd.items()):
+            fail("resume: the model at the first resumed step differs from "
+                 "the saved -last checkpoint")
+        if not (first["count"] == saved["global_step"] == 3 * spe
+                and first["lr"] == sched(3 * spe) and step.count == 4 * spe):
+            fail(f"resume: step count {first['count']} (saved "
+                 f"{saved['global_step']}), LR {first['lr']} (schedule "
+                 f"{sched(3 * spe)}), final count {step.count}")
+        want = expected_counts(0, spe, 1)
+        if rrec["counts"] != want:
+            fail(f"resume: launches {rrec['counts']}, expected {want}")
+        log(f"training CLI (b): resumed from -last (epoch {saved['epoch']}, "
+            f"global_step {saved['global_step']}): {len(want_sd)} tensors "
+            f"bitwise equal at the first step, step count {first['count']} "
+            f"-> {step.count}, LR {first['lr']:.6e} (the schedule's at "
+            f"{3 * spe}); epoch 3 row {rrec['rows'][0]}; run "
+            f"{rrec['wall']:.1f} s")
+        del model, step
+        torch.cuda.empty_cache()
+
+        # (c) on-device augmentation: raw slices to the card
+        raw_ds = SynapseDataset(data, "train", lists, IMG, seed=cfg.seed,
+                                augment=False, keep_raw_size=True)
+        raw = collate([raw_ds.get(i) for i in range(TRAIN_BATCH)],
+                      normalize=False)
+        images = raw["image"][..., 0].to(dev)
+        labels = raw["label"].to(dev)
+        params = device_aug.sample_params(
+            device_aug.step_generator(cfg.seed, 0, dev), TRAIN_BATCH,
+            CLI_RAW, CLI_RAW, IMG, dev)
+        got_i, got_l = device_aug.apply_params(params, images, labels, IMG)
+        want_i, want_l = device_aug.apply_params(
+            {k: v.cpu() for k, v in params.items()}, raw["image"][..., 0],
+            raw["label"], IMG)
+        err = compare(got_i.cpu(), want_i, torch.float32)
+        flips = int((got_l.cpu() != want_l).sum())
+        if flips:
+            fail(f"device_augment: {flips} labels differ between the card "
+                 "and the CPU")
+        gen = torch.Generator(device=dev)
+
+        def aug():
+            gen.manual_seed(SEED)
+            device_aug.device_augment(gen, images, labels, IMG)
+        aug_ms, aug_dev_ms = time_ms(aug, 10), device_time(aug, 10)
+        del images, labels, got_i, got_l
+        dcfg = dataclasses.replace(
+            cfg, device_aug=True, stop_epoch=1,
+            log_dir=os.path.join(tmp, "c", "logs"),
+            ckpt_dir=os.path.join(tmp, "c", "ckpt"))
+        model, step, drec = spied_training(dcfg, raw_ds, val, dev, spe)
+        check_training_rows(drec, "run_training with device_aug", [0])
+        want = expected_counts(spe, 0, 1)
+        if drec["counts"] != want:
+            fail(f"device_aug: launches {drec['counts']}, expected {want}")
+        dwaits = [w for _, w in drec["waits"]]
+        dhost = [s * 1e3 for s in drec["steps"]]
+        log(f"training CLI (c): device_augment b{TRAIN_BATCH} {CLI_RAW}x"
+            f"{CLI_RAW} -> {IMG}x{IMG}, card vs CPU on the same parameters "
+            f"(ops fired per slice {params['active'].sum(1).tolist()}): "
+            f"image max abs err {err:.3e} (fp32 tolerance), labels equal; "
+            f"{aug_ms:.3f} ms per batch (device {aug_dev_ms:.3f} ms); "
+            f"run_training with device_aug, 1 epoch of {spe} steps: host "
+            f"time per step, the first {dhost[0]:.1f} ms (synchronised), the "
+            f"other median {statistics.median(dhost[1:]):.1f}; "
+            f"{step_ms(drec, (0,), spe):.1f} ms/step over the epoch less its "
+            f"waits; loader wait, the first batch {1e3 * dwaits[0]:.1f} ms, "
+            f"the other mean {1e3 * sum(dwaits[1:]) / (len(dwaits) - 1):.2f}"
+            f"; epoch {drec['rows'][0]['epoch_time_s']} s, peak memory "
+            f"{drec['peak_gib']:.2f} GiB, run {drec['wall']:.1f} s; launches "
+            f"{drec['counts']} | {gpu}")
+        del model, step
+        torch.cuda.empty_cache()
+
+        # (d) the ACDC command line
+        acdc, alists = os.path.join(tmp, "ACDC"), os.path.join(tmp, "alists")
+        for d in ("train", "test"):
+            os.makedirs(os.path.join(acdc, d))
+        os.makedirs(alists)
+        (case,) = blob_cases(1, (ACDC_TRAIN_SLICES,) + ACDC_SHAPE[1:], 4,
+                             SEED + 42)
+        names = [f"patient{i:03d}_frame01_slice_0.npz"
+                 for i in range(ACDC_TRAIN_SLICES)]
+        for i, name in enumerate(names):
+            np.savez(os.path.join(acdc, "train", name), img=case["image"][i],
+                     label=case["label"][i].astype(np.float32))
+        (test,) = blob_cases(1, ACDC_SHAPE, 4, SEED + 43)
+        np.savez(os.path.join(acdc, "test", "patient101_frame01.npz"),
+                 img=test["image"], label=test["label"].astype(np.float32))
+        with open(os.path.join(alists, "train.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        with open(os.path.join(alists, "test.txt"), "w") as f:
+            f.write("patient101_frame01.npz\n")
+        logs, ckpts = os.path.join(tmp, "d", "logs"), os.path.join(tmp, "d",
+                                                                   "ckpt")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, step = train_acdc.main(
+            ["--data-dir", acdc, "--list-dir", alists, "--log-dir", logs,
+             "--ckpt-dir", ckpts, "--max-steps", "2", "--device", "cuda"])
+        acdc_s = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        want = expected_counts(2, 0, 0)
+        if counts != want:
+            fail(f"ACDC training CLI: launches {counts}, expected {want}")
+        with open(os.path.join(logs, "acdc.metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        if (step.count != 2 or len(rows) != 1 or rows[0]["step"] != 2
+                or not math.isfinite(rows[0]["mean_train_loss"])
+                or not os.path.isfile(os.path.join(ckpts, "acdc-last.ckpt"))):
+            fail(f"ACDC training CLI: step count {step.count}, rows {rows}")
+        log(f"training CLI (d): cli.train_acdc.main --max-steps 2 on "
+            f"{ACDC_TRAIN_SLICES} slices {ACDC_SHAPE[1:]} (batch 32, frozen "
+            f"encoder): {acdc_s:.1f} s; row {rows[0]}; acdc-last.ckpt "
+            f"written; launches {counts}")
+        del model, step
+        torch.cuda.empty_cache()
+    return rec["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1936,9 +2410,11 @@ def main() -> int:
 
     timed("2 build", _build.library)
     log(f"build: {_build.build().name}")
-    # b32 fp32: the batch and dtype of the test-set path (phase 21)
+    # b32 / b48 fp32: the batches and dtype of the test-set path (phase
+    # 21) and of training from the command line (phase 22)
     kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev),
-                    "forward", [(TEST_BATCH, torch.float32)])
+                    "forward", [(TEST_BATCH, torch.float32),
+                                (TRAIN_BATCH, torch.float32)])
     model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
     base = timed("6 throughput", phase_throughput, model, dev, gpu)
@@ -1968,6 +2444,8 @@ def main() -> int:
     scan_bwd = timed("20 selective_scan backward",
                      phase_selective_scan_backward, dev, gpu)
     test_set = timed("21 test-set inference", phase_test_set, dev, gpu)
+    training_cli = timed("22 training from the command line",
+                         phase_training_cli, dev, gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -1982,10 +2460,14 @@ def main() -> int:
              "grid_sample_bilinear": kernel_route, "quad_scan_ln_q8": int8}
     for name in kernels:
         kernels[name]["launches"] = paths.get(name, serving).get(name, 0)
-    # and on the test-set path (phase 21), K1-K5
+    # and on the test-set path (phase 21), K1-K5; on the training CLI's
+    # path (phase 22 (b)), K1-K5 and K8
     for name in PER_FORWARD:
         kernels[name]["launches_test_set"] = test_set.get(name, 0)
+    for name in [*PER_FORWARD, "scan2d"]:
+        kernels[name]["launches_training_cli"] = training_cli.get(name, 0)
     if any(k["launches"] == 0 or k.get("launches_test_set") == 0
+           or k.get("launches_training_cli") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

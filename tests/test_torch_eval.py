@@ -441,10 +441,18 @@ def test_datasets_match_jax(data_dirs, which, split, opt):
 
 
 def test_train_augmentation_is_refused(data_dirs):
+    """Train-split augmentation, once refused, is now ported: a train split
+    with ``augment`` gives the JAX package's augmented samples
+    (tests/test_torch_data.py holds every op and split against JAX)."""
     for which, key in [("Synapse", "syn"), ("ACDC", "acdc")]:
-        cls = getattr(datasets, which + "Dataset")
-        with pytest.raises(NotImplementedError, match="A5"):
-            cls(data_dirs[key], "train", data_dirs[key + "_list"])
+        args = (data_dirs[key], "train", data_dirs[key + "_list"])
+        got = getattr(datasets, which + "Dataset")(*args, img_size=64)
+        want = getattr(jdatasets, which + "Dataset")(*args, img_size=64)
+        for i in range(len(want)):
+            g = got.get(i, np.random.default_rng(i))
+            w = want.get(i, np.random.default_rng(i))
+            assert g["image"].tobytes() == w["image"].tobytes()
+            assert g["label"].tobytes() == w["label"].tobytes()
     # augmentation applies to the train split only, as in the JAX package
     test = datasets.ACDCDataset(data_dirs["acdc"], "test",
                                 data_dirs["acdc_list"], augment=True)

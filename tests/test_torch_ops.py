@@ -458,7 +458,14 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.convert.checkpoint, "
             "ceigm_unet_tpu_torch.train.loop, "
             "ceigm_unet_tpu_torch.cli.inference, "
-            "ceigm_unet_tpu_torch.cli.calc_params; "
+            "ceigm_unet_tpu_torch.cli.calc_params, "
+            "ceigm_unet_tpu_torch.native, "
+            "ceigm_unet_tpu_torch.data.augment, "
+            "ceigm_unet_tpu_torch.data.loader, "
+            "ceigm_unet_tpu_torch.data.device_aug, "
+            "ceigm_unet_tpu_torch.convert.torch_import, "
+            "ceigm_unet_tpu_torch.cli.train_synapse, "
+            "ceigm_unet_tpu_torch.cli.train_acdc; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
             "from ceigm_unet_tpu_torch.entry import legacy_train_entry; "
             "from ceigm_unet_tpu_torch.ops.grid_sample import "
@@ -469,7 +476,8 @@ def test_port_imports_no_jax():
             "entry('cpu', quant_scan=True, dwconv='kernel', "
             "dysample_grouped=False); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ceigm_unet_tpu')]; "
+            "('jax', 'jaxlib', 'flax', 'ceigm_unet_tpu') "
+            "or m.startswith('ceigm_unet_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300)
