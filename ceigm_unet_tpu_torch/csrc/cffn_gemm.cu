@@ -31,8 +31,27 @@
 // the loads past M, N and K; it needs 16-byte row pitches, so the wrapper
 // pads K to a multiple of 8 (ops/ffn.py gemm_operands).
 //
-// fp32 weights: a 64x64x16 shared-memory tiled GEMM on the fp32 FMA pipes
-// (4x4 outputs per thread), fp32 throughout as the fp32 checks require.
+// fp32 weights (the CLIs' fp32 regime, TF32 off): fp32 products and sums
+// on the FMA pipes, no tensor cores, which bound it by operations (67
+// TFLOP/s) at every CustomFfn shape. Blocks of 256 threads (2 an SM: 128
+// registers a thread) multiply tiles of 128 x 128 (256 x 64 where N <= 64)
+// as register-blocked outer products: each thread holds 8 x 8 sums in
+// 4-wide sub-blocks and per K step reads its fragments as 4 float4 loads
+// from k-major shared memory (rows padded, no bank conflict), 16 FFMAs per
+// load. Both operands are K-contiguous (A (M, K), W nn.Linear's (N, K)):
+// while a 32-wide K stage is multiplied, each thread fetches the next one
+// as float4s into registers in two 16-wide halves and writes each half
+// transposed into the other stage of a two-stage ring 12 K steps after
+// fetching it, so the loads land unwaited and a block meets one
+// __syncthreads per 32 K steps (2048 FFMAs a thread). Each output is summed
+// over K in K order by one thread, as cuBLAS's sgemm sums it: at every
+// CustomFfn shape the results equal torch.addmm's bit for bit (on an H100),
+// and two calls give the same bits. K is not split: a split sums in
+// another order, which moved the b2 train step's gradients away from the
+// CPU's by more than the CPU's own reorder noise (chip_smoke.py phase 8).
+// So tile counts just past a multiple of the SMs cost a part-empty round
+// (fc2 at 14x14, b32: 147 tiles on 132 SMs). The epilogue adds the bias in
+// fp32 and stores float4s masked at M and N.
 #include <cuda.h>
 
 #include <type_traits>
@@ -42,60 +61,190 @@
 namespace ceigm {
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16;
+// --- the fp32 route (fp32 weights) ------------------------------------------
 
-// C[M, N] = round_TW(A[M, K]) @ Wt[K, N] + bias[N], fp32 accumulation
-// on the FMA pipes (fp32 weights).
-template <typename TA, typename TW, typename TO>
-__global__ void __launch_bounds__(256)
-gemm_bias_kernel(const TA* __restrict__ A, const TW* __restrict__ Wt,
-                 const float* __restrict__ bias, TO* __restrict__ C, int M,
-                 int N, int K) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Ws[BK][BN + 4];
+constexpr int kF32TileK = 32;    // K per ring stage: one barrier each
+
+// Tiles of BM rows by TN columns, 128 x 128 (256 x 64 where N <= 64), in
+// blocks of 256 threads (2 an SM: 128 registers a thread), each warp
+// holding 64 x 32 sums, each thread 8 x 8: rows in sub-blocks of 4, 32
+// apart, columns in two of 4, 16 apart.
+template <int BM, int TN>
+struct F32Config {
+  static constexpr int kThreads = 256;
+  static constexpr int kWarpsN = TN / 32;
+  static_assert((BM / 64) * kWarpsN == 8, "8 warps a block");
+  // K per fetch: a stage's K in two halves of 16, each fetched into
+  // registers and written to shared memory while the stage before is
+  // multiplied
+  static constexpr int kFetchK = 16;
+  static constexpr int kRowStep = kThreads / (kFetchK / 4);  // rows a pass
+  // stage rows (one K each) padded by 4 floats: a fetch's transposing
+  // stores then meet at most 2 to a bank, and every fragment read is a
+  // fixed offset from one base
+  static constexpr int kPitchA = BM + 4, kPitchW = TN + 4;
+  static constexpr int kSmem = 2 * kF32TileK * (kPitchA + kPitchW) * 4;
+};
+
+// 4 floats of one row of C from p on: one float4 store where the row holds
+// them and the address is 16-byte aligned (vec), else one float at a time
+__device__ __forceinline__ void store_row4(float* p, float4 v, int left,
+                                           bool vec) {
+  if (vec && left >= 4) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  p[0] = v.x;
+  if (left > 1) p[1] = v.y;
+  if (left > 2) p[2] = v.z;
+  if (left > 3) p[3] = v.w;
+}
+
+// C[M, N] = A[M, K] @ W[N, K]^T + bias[N], fp32 (K a multiple of 4, A and
+// W 16-byte aligned); block (x, y) computes tile (M tile y, N tile x) over
+// the whole of K, in K order, as cuBLAS's sgemm sums it.
+//
+// Stage layout: k-major, As[k][m] and Ws[k][n], rows padded (F32Config).
+// A thread fetches rows tid / 4 + kRowStep r of a tile at K offset
+// 4 (tid % 4): the 4 lanes of one row read its 64 contiguous bytes of the
+// half and write them transposed, one float to each of 4 stage rows.
+template <int BM, int TN>
+__global__ void __launch_bounds__(F32Config<BM, TN>::kThreads, 2)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias, float* __restrict__ C, int M,
+                int N, int K) {
+  using Cfg = F32Config<BM, TN>;
+  constexpr int BK = kF32TileK, FK = Cfg::kFetchK, RS = Cfg::kRowStep;
+  constexpr int LA = BM / RS, LW = TN / RS;   // float4 fetches a thread
+  constexpr int PA = Cfg::kPitchA, PW = Cfg::kPitchW;
+  extern __shared__ float4 f32_smem[];
+  float* const As = reinterpret_cast<float*>(f32_smem);  // [2][BK][PA]
+  float* const Ws = As + 2 * BK * PA;                    // [2][BK][PW]
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TN;
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4] = {};
+  const int nk = (K + BK - 1) / BK;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  // global -> registers; rows past M or N and chunks past K load zeros
+  const int q = tid & 3, row0 = tid >> 2;
+  const float* const a_src = A + (size_t)(m0 + row0) * K + 4 * q;
+  const float* const w_src = W + (size_t)(n0 + row0) * K + 4 * q;
+  const int a_rows = M - m0 - row0, w_rows = N - n0 - row0;
+  float4 ra[LA], rw[LW];
+  // half h of stage kt: K [kt * BK + h * FK, + FK)
+  auto fetch = [&](int kt, int h) {
+    const int k = kt * BK + h * FK;
+    const bool k_in = k + 4 * q < K;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int e = tid + r * 256;          // 0..1023
-      const int am = e / BK, ak = e % BK;   // A tile 64 x 16
-      const int gm = m0 + am, gk = k0 + ak;
-      float v = 0.f;
-      if (gm < M && gk < K)
-        v = to_f(from_f<TW>(to_f(A[(long long)gm * K + gk])));
-      As[ak][am] = v;
-      const int wk = e / BN, wn = e % BN;   // W tile 16 x 64
-      const int gk2 = k0 + wk, gn = n0 + wn;
-      Ws[wk][wn] = (gk2 < K && gn < N) ? to_f(Wt[(long long)gk2 * N + gn])
-                                       : 0.f;
+    for (int r = 0; r < LA; ++r)
+      ra[r] = k_in && RS * r < a_rows
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        a_src + (size_t)RS * r * K + k))
+                  : zero;
+#pragma unroll
+    for (int r = 0; r < LW; ++r)
+      rw[r] = k_in && RS * r < w_rows
+                  ? __ldg(reinterpret_cast<const float4*>(
+                        w_src + (size_t)RS * r * K + k))
+                  : zero;
+  };
+  // registers -> half h of stage buf: element i of a fetch is row
+  // k = h * FK + 4q + i
+  auto stage = [&](int buf, int h) {
+    float* const as = As + buf * BK * PA + (h * FK + 4 * q) * PA + row0;
+    float* const ws = Ws + buf * BK * PW + (h * FK + 4 * q) * PW + row0;
+#pragma unroll
+    for (int r = 0; r < LA; ++r) {
+      as[RS * r] = ra[r].x;
+      as[PA + RS * r] = ra[r].y;
+      as[2 * PA + RS * r] = ra[r].z;
+      as[3 * PA + RS * r] = ra[r].w;
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], wv[4];
+    for (int r = 0; r < LW; ++r) {
+      ws[RS * r] = rw[r].x;
+      ws[PW + RS * r] = rw[r].y;
+      ws[2 * PW + RS * r] = rw[r].z;
+      ws[3 * PW + RS * r] = rw[r].w;
+    }
+  };
+
+  // this thread's sums: rows wm*64 + i*32 + tm*4 + (0..3), columns
+  // wn*32 + j*16 + tn*4 + (0..3), i, j < 2
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Cfg::kWarpsN, wn = warp % Cfg::kWarpsN;
+  const int tm = lane >> 2, tn = lane & 3;
+  float acc[8][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = Ws[kk][tx + 16 * j];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0, 0);
+  stage(0, 0);
+  fetch(0, 1);
+  stage(0, 1);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    const bool more = kt + 1 < nk;
+    const float* const as = As + buf * BK * PA + wm * 64 + 4 * tm;
+    const float* const ws = Ws + buf * BK * PW + wn * 32 + 4 * tn;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int k = 0; k < BK; ++k) {
+      // the next stage's halves: each fetched 8 or 12 K steps ahead of
+      // its transposing stores, so the loads land unwaited
+      if (more && k == 0) fetch(kt + 1, 0);
+      if (more && k == 8) {
+        stage(buf ^ 1, 0);
+        fetch(kt + 1, 1);
+      }
+      if (more && k == 20) stage(buf ^ 1, 1);
+      float a[8], b[8];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * wv[j];
+      for (int i = 0; i < 2; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(as + k * PA + 32 * i);
+        a[4 * i] = v.x;
+        a[4 * i + 1] = v.y;
+        a[4 * i + 2] = v.z;
+        a[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(ws + k * PW + 16 * j);
+        b[4 * j] = v.x;
+        b[4 * j + 1] = v.y;
+        b[4 * j + 2] = v.z;
+        b[4 * j + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
+
+  const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(C) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+  for (int j = 0; j < 2; ++j) {
+    const int col = n0 + wn * 32 + 16 * j + 4 * tn;
+    if (col >= N) continue;
+    float bv[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) C[(long long)gm * N + gn] = from_f<TO>(acc[i][j] + bias[gn]);
+    for (int e = 0; e < 4; ++e) bv[e] = col + e < N ? bias[col + e] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = m0 + wm * 64 + 32 * (i >> 2) + 4 * tm + (i & 3);
+      if (row < M)
+        store_row4(C + (size_t)row * N + col,
+                   make_float4(acc[i][4 * j] + bv[0],
+                               acc[i][4 * j + 1] + bv[1],
+                               acc[i][4 * j + 2] + bv[2],
+                               acc[i][4 * j + 3] + bv[3]),
+                   N - col, vec);
     }
   }
 }
@@ -633,30 +782,47 @@ cudaError_t gemm_bf16w(const void* A, const void* W, const float* bias,
   return gemm_tc<TA, TO, 128, false>(A, W, bias, C, M, N, K, s);
 }
 
-template <typename TA, typename TO>
-cudaError_t gemm_f32w(const void* A, const void* Wt, const float* bias,
-                      void* C, int M, int N, int K, cudaStream_t s) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bias_kernel<TA, float, TO><<<grid, 256, 0, s>>>(
-      static_cast<const TA*>(A), static_cast<const float*>(Wt), bias,
-      static_cast<TO*>(C), M, N, K);
+template <int BM, int TN>
+cudaError_t gemm_f32_tiles(const float* A, const float* W, const float* bias,
+                           float* C, int M, int N, int K, cudaStream_t s) {
+  using Cfg = F32Config<BM, TN>;
+  const dim3 grid((N + TN - 1) / TN, (M + BM - 1) / BM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  auto kernel = gemm_f32_kernel<BM, TN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem, s>>>(A, W, bias, C, M, N, K);
   return cudaGetLastError();
+}
+
+cudaError_t gemm_f32w(const void* A, const void* W, const float* bias,
+                      void* C, int M, int N, int K, cudaStream_t s) {
+  // float4 loads: 16-byte row pitches and 16-byte aligned bases
+  if (K % 4 != 0 || reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(W) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(A);
+  const float* w = static_cast<const float*>(W);
+  float* c = static_cast<float*>(C);
+  if (N <= 64) return gemm_f32_tiles<256, 64>(a, w, bias, c, M, N, K, s);
+  return gemm_f32_tiles<128, 128>(a, w, bias, c, M, N, K, s);
 }
 
 }  // namespace
 }  // namespace ceigm
 
-// fp32 weights: W is Wt (K, N) row-major, everything fp32. bf16 weights: W
-// is (N, K) row-major (nn.Linear's weight), K a multiple of 8, A and W
-// 16-byte aligned; fc1 takes a bf16 A and writes fp32, fc2 an fp32 A and
-// writes bf16.
+// W is (N, K) row-major, nn.Linear's weight, in both routes, and A and W
+// are 16-byte aligned. fp32 weights: everything fp32, K a multiple of 4.
+// bf16 weights: K a multiple of 8; fc1 takes a bf16 A and writes fp32, fc2
+// an fp32 A and writes bf16.
 extern "C" int cffn_gemm(const void* A, const void* W, const float* bias,
                          void* C, int M, int N, int K, int dtype_a,
                          int dtype_w, int dtype_o, cudaStream_t s) {
   using namespace ceigm;
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if (dtype_a == kF32 && dtype_w == kF32 && dtype_o == kF32)
-    return (int)gemm_f32w<float, float>(A, W, bias, C, M, N, K, s);
+    return (int)gemm_f32w(A, W, bias, C, M, N, K, s);
   if (dtype_a == kBF16 && dtype_w == kBF16 && dtype_o == kF32)
     return (int)gemm_bf16w<bf16, float>(A, W, bias, C, M, N, K, s);
   if (dtype_a == kF32 && dtype_w == kBF16 && dtype_o == kBF16)

@@ -19,7 +19,12 @@ function). This checkout's GEMM is timed through ``ffn_gemm``, its
 wrapper's padding included, and alone on the padded operands; the base's
 entry point is called directly: on x as it is, with bf16 weights as
 (K, N) rows, when its ``csrc/`` predates ``cffn_gemm.cu``, and otherwise on
-the padded operands of this checkout's launch. Then the
+the padded operands of this checkout's launch. Then the same six shapes
+with fp32 weights at the b32 and b48 fp32 forwards (the test-set and
+training CLIs' route, TF32 off), as device time: the base's entry point
+(with W as (K, N) rows, copied outside the timing, where its fp32 route
+takes them), this checkout through ``ffn_gemm`` and its launch alone, and
+``torch.addmm``, beside the bound at the fp32 FMA peak. Then the
 grid-sample kernels (``csrc/grid_sample.cu``) at the b128 bf16 224x224
 forward's shapes: K4 (``dysample_grid_sample``, 4 groups) at DySample's
 three upsamplings, and K6/K7 (``grid_sample_bilinear``) at the per-group
@@ -70,6 +75,7 @@ from ceigm_unet_tpu_torch.ops import selective_scan as ss
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12           # outside the tensor cores
 # (tag, calls per unfrozen b48 step: the SS2D or quad blocks at that shape,
 # side, D); each block's backward runs K8 once in each mode
 GM_TINY = [("gm_tiny 56x56 D16", 5, 56, 16), ("gm_tiny 28x28 D32", 6, 28, 32),
@@ -317,6 +323,66 @@ def gemm_cases(base_lib, this_lib, base_rows_nk, gpu, gen):
     print("cffn_gemm per b128 bf16 forward: "
           + ", ".join(f"{n} {v:.3f} ms" for n, v in totals.items()),
           flush=True)
+
+
+def gemm_fp32_cases(base_lib, this_lib, base_kn, gpu, gen):
+    """K3's fp32-weight GEMM at the six shapes of the b32 and b48 fp32
+    forwards, each held against ffn_gemm_ref (rtol 1e-4, atol 1e-4 * max)
+    on both libraries and against torch.addmm (and this kernel's output
+    compared with torch.addmm's bit for bit), then timed as device time in
+    turns. ``base_kn``: the base's fp32 route takes W as (K, N) rows (given
+    a copy made outside the timing) rather than nn.Linear's (N, K)."""
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    for batch in (32, 48):
+        totals = {}
+        for tag, calls, L, K, N, _ in FFN:
+            M = batch * L
+            a = torch.randn((M, K), generator=gen, device=dev)
+            w_nk = torch.randn((N, K), generator=gen, device=dev) * 0.05
+            bias = torch.randn((N,), generator=gen, device=dev) * 0.1
+            a_k, w_k = ffn.gemm_operands(a, w_nk.t())
+            w_base = w_nk.t().contiguous() if base_kn else w_k
+            runs = {"base": lambda: _gemm(base_lib, a_k, w_base, bias, f32,
+                                          not base_kn),
+                    "this": lambda: ffn.ffn_gemm(a, w_nk.t(), bias, f32),
+                    "this kernel": lambda: _gemm(this_lib, a_k, w_k, bias,
+                                                 f32, True),
+                    "addmm": lambda: torch.addmm(bias, a, w_nk.t())}
+            plain = ffn.ffn_gemm_ref(a, w_nk.t(), bias, f32)
+            scale = plain.abs().max().item()
+            errs, outs = {}, {}
+            for n, fn in runs.items():
+                outs[n] = fn()
+                err = (outs[n] - plain).abs()
+                if bool((err > 1e-4 * scale + 1e-4 * plain.abs()).any()):
+                    raise SystemExit(f"{n} cffn_gemm fp32 {tag} b{batch}: "
+                                     f"max abs err {err.max().item():.3e}")
+                errs[n] = err.max().item()
+            same = torch.equal(outs["this"], outs["addmm"])
+            del plain, outs
+            ms = {n: [] for n in runs}
+            for n in list(runs) + list(runs)[::-1]:
+                ms[n].append(device_time(runs[n]))
+            med = {n: statistics.median(v) for n, v in ms.items()}
+            nbytes = 4 * (M * K + N * K + N + M * N)
+            med["bound"] = max(nbytes / HBM_BPS,
+                               2 * M * N * K / FP32_FLOPS) * 1e3
+            for n, v in med.items():
+                totals[n] = totals.get(n, 0.0) + calls * v
+            print(f"cffn_gemm fp32 [{tag}] x{calls}/forward b{batch} fp32, "
+                  "device ms: " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                            med.items())
+                  + f", this kernel / bound "
+                  f"{med['this kernel'] / med['bound']:.2f}, max abs "
+                  + ", ".join(f"err {n} {v:.3e}" for n, v in errs.items())
+                  + f" (max|plain| {scale:.3e}), this == addmm bitwise: "
+                  f"{same} | {gpu}", flush=True)
+            del a, w_nk, a_k, w_k, w_base, runs
+        print(f"cffn_gemm fp32 per b{batch} fp32 forward, device ms: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in totals.items()),
+              flush=True)
+        torch.cuda.empty_cache()
 
 
 def _grid_sample(lib, x, grid, groups):
@@ -990,8 +1056,11 @@ def main() -> int:
                    for n, csrc in (("base", base), ("this", _build.CSRC))}
         scan2d_cases(libs, strided, args.batch, gpu, gen)
     if "cffn_gemm" in args.kernels:
-        gemm_cases(libs["base"], libs["this"],
-                   (base / "cffn_gemm.cu").exists(), gpu, gen)
+        base_gemm = base / "cffn_gemm.cu"
+        gemm_cases(libs["base"], libs["this"], base_gemm.exists(), gpu, gen)
+        gemm_fp32_cases(libs["base"], libs["this"],
+                        not base_gemm.exists()
+                        or "Wt (K, N)" in base_gemm.read_text(), gpu, gen)
     if "grid_sample" in args.kernels:
         grid_sample_cases(libs, gpu, gen)
     if "dwconv" in args.kernels:

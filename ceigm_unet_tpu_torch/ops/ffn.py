@@ -66,14 +66,16 @@ def ffn_gemm_ref(a, w, bias, out_dtype: torch.dtype):
 
 
 def gemm_operands(a, w):
-    """a (M, K) and w (K, N) as the bf16-weight kernel's TMA loads take
-    them: a (M, Kp) and w's transpose (N, Kp), K-major, each contiguous and
-    16-byte aligned, with Kp = K rounded up to a multiple of 8 (TMA needs
-    16-byte row pitches) and zeros in the added columns. An operand that
-    already fits is passed as it is: nn.Linear's weight is (N, K) storage,
-    so ``fc.weight.t()`` comes back as that storage without a copy."""
+    """a (M, K) and w (K, N) as the GEMM kernels load them: a (M, Kp) and
+    w's transpose (N, Kp), K-major, each contiguous and 16-byte aligned,
+    with Kp = K rounded up to whole 16 bytes of w's dtype (8 bf16 for the
+    bf16 route's TMA row pitches, 4 fp32 for the fp32 route's float4 loads)
+    and zeros in the added columns. An operand that already fits is passed
+    as it is: nn.Linear's weight is (N, K) storage, so ``fc.weight.t()``
+    comes back as that storage without a copy."""
     K = a.shape[1]
-    Kp = -(-K // 8) * 8
+    q = 16 // w.element_size()
+    Kp = -(-K // q) * q
 
     def fit(t):
         if t.shape[1] != Kp:
@@ -87,9 +89,10 @@ def gemm_operands(a, w):
 def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
     """(M, K) @ (K, N) + bias (N,) -> (M, N) in ``out_dtype``, fp32
     accumulation; a is rounded to w's dtype first (fc2 takes the fp32
-    hidden in the compute dtype, as the TPU kernel does). On a card, bf16
-    weights go to the TMA/wgmma kernel through :func:`gemm_operands`; fp32
-    weights to the fp32 kernel, which takes w (K, N) row-major."""
+    hidden in the compute dtype, as the TPU kernel does). On a card, the
+    operands go through :func:`gemm_operands` to the kernel of w's dtype:
+    bf16 weights to the TMA/wgmma kernel, fp32 weights to the fp32 FMA
+    kernel (fp32 products and sums throughout)."""
     (M, K), N = a.shape, w.shape[1]
     if w.shape[0] != K or bias.shape != (N,):
         raise ValueError(f"ffn_gemm: a {tuple(a.shape)} w {tuple(w.shape)} "
@@ -104,17 +107,13 @@ def ffn_gemm(a, w, bias, out_dtype: torch.dtype):
     if a.device.type != "cuda":
         raise ValueError(f"ffn_gemm: no kernel for {a.device}")
     _build.check_no_grad("ffn_gemm", a, w, bias)
-    if w.dtype == torch.bfloat16:
-        ac, wc = gemm_operands(a, w)
-        K = ac.shape[1]
-    else:
-        ac, wc = a.contiguous(), w.contiguous()
+    ac, wc = gemm_operands(a, w)
     bf = bias.to(device=a.device, dtype=torch.float32).contiguous()
     _build.check_cuda(ac, wc, bf)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     p = _build.ptr
-    _build.launch("cffn_gemm", p(ac), p(wc), p(bf), p(out), M, N, K,
-                  _build.dtype_code(ac), _build.dtype_code(wc),
+    _build.launch("cffn_gemm", p(ac), p(wc), p(bf), p(out), M, N,
+                  ac.shape[1], _build.dtype_code(ac), _build.dtype_code(wc),
                   _build.dtype_code(out))
     return out
 

@@ -15,11 +15,15 @@ exits non-zero without its last line:
    every chunk of a 56x56 walk), at batch 2 in fp32 (TF32 off; rtol 1e-4, atol
    1e-4 * max|plain|) and bf16 (rtol 3e-2, atol 5e-2 * max|plain|), at
    batch 32 and batch 48 in fp32 (the fp32 tolerance; the batches and dtype
-   of phase 21's test-set path and of phase 22's training, and the fp32
-   checks of the SIMT GEMM at a large M) and
+   of phase 21's test-set path and of phase 22's training, the CLIs' fp32
+   route: ``cffn_gemm``'s fp32-weight kernel at every shape and launch plan
+   it takes there) and
    batch 128 in bf16 (same bf16 tolerance; the batch of phase 6, large enough
    that every grid-stride loop repeats), where kernel and plain version are
-   also timed with CUDA events; ``cffn_gemm`` is held tighter: its fp32 output
+   also timed with CUDA events; each kernel and its library call are also
+   timed at b32 fp32 (the test-set path's batch and dtype: fp32 ``addmm``
+   with TF32 off beside ``cffn_gemm``) beside the bound at the fp32 peak;
+   ``cffn_gemm`` is held tighter: its fp32 output
    (fc1) at the fp32 tolerance and its bf16 output (fc2) at rtol 1e-2, atol
    1e-2 * max|plain| (two bf16 ulps), and ``cffn_dw3_inception7`` (an fp32
    hidden in every regime) at the fp32 tolerance throughout; K4 (``dysample_grid_sample``) also on a
@@ -133,15 +137,17 @@ exits non-zero without its last line:
    (a) a seeded 9-class gm_tiny saved as a Lightning file and read back
    by ``convert.checkpoint.load_model`` on the card, every tensor bitwise
    equal; (b) ``cli.inference.run_inference`` with an exact predictor
-   (one-hot logits of the rounded raw voxel) on two 40 x 512 x 512 cases
+   (one-hot logits of the rounded raw voxel) on two 8 x 512 x 512 cases
    whose voxels are class ids, at patch 512 x 512 (the zoom is the
-   identity): dice 1, jaccard 1, hd95 0, asd 0 for every class; (c) the
-   loaded gm_tiny on two Synapse-like 40 x 512 x 512 cases (blob labels
-   with every organ present; real cases hold 85-198 slices): every value
-   finite, or NaN where the prediction holds no voxel of the class, K1/K3/
-   K4/K5 launched forwards x ``PER_FORWARD`` (counters reset just before,
-   read just after), ms per case of ``predict_volume`` and of the host
-   metrics, fp32 slices/s; the b32 fp32 logits of case 0's first batch
+   identity): dice 1, jaccard 1, hd95 0, asd 0 for every class (exact at
+   any depth; the host metrics' time grows with it); (c) the loaded gm_tiny
+   on two Synapse-like 40 x 512 x 512 cases (blob labels with every organ
+   present; real cases hold 85-198 slices), both served, the first through
+   ``run_inference`` and scored: every value finite, or NaN where the
+   prediction holds no voxel of the class, K1/K3/K4/K5 launched forwards x
+   ``PER_FORWARD`` (counters reset just before, read just after), ms per
+   case of ``predict_volume`` and of the first case's host metrics, fp32
+   slices/s; the b32 fp32 logits of case 0's first batch
    against the same model on the CPU (phase 4's tolerance), and that
    forward's wall time, the host's time to issue it, its device kernel time
    (torch.profiler), idle share and the card's clocks and power; (d) ``cli.inference.main`` on two ACDC-format
@@ -182,9 +188,12 @@ The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
 10 and 14 also with ``device_ms`` and ``library_device_ms``, the same
 calls timed as the device's work alone; K1-K5 also with
-``launches_test_set``, their launches on phase 21's path, and
+``launches_test_set``, their launches on phase 21's path,
 ``max_abs_err_b32_fp32`` / ``max_abs_err_b48_fp32``, phase 3's checks at
-the batch and dtype of phase 21's and phase 22's paths;
+the batch and dtype of phase 21's and phase 22's paths, and
+``ms_b32_fp32``, ``device_ms_b32_fp32``, ``library_ms_b32_fp32``,
+``library_device_ms_b32_fp32`` and ``bound_ms_b32_fp32``, phase 3's times
+per b32 fp32 forward;
 K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
 22 (b)'s path); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -465,19 +474,24 @@ def kernel_cases(dev):
     }
 
 
-def phase_kernels(dev, gpu, kernels, per="forward", extra=()):
+def phase_kernels(dev, gpu, kernels, per="forward", extra=(), timed=()):
     """Each kernel of ``kernels`` (as :func:`kernel_cases` gives them)
     against its plain version at b2 fp32, b2 bf16, each (batch, dtype) of
     ``extra`` and b128 bf16, and timed at b128 bf16 per ``per`` (the
     forward, or the backward of one): with the host in the loop (``ms``,
     ``library_ms``) and as the device's work alone, the calls queued behind
-    a spin kernel (``device_ms``, ``library_device_ms``)."""
+    a spin kernel (``device_ms``, ``library_device_ms``). Each (batch,
+    dtype) of ``timed`` (one of ``extra``) is timed the same way, beside its
+    bound (``ms_b32_fp32``, ``device_ms_b32_fp32``, ``library_ms_b32_fp32``,
+    ``library_device_ms_b32_fp32``, ``bound_ms_b32_fp32`` for b32 fp32)."""
     from ceigm_unet_tpu_torch.kernel_ab import device_time
     results = {}
     bf16 = torch.bfloat16
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms")
     for name, (route, source, replaces, cases) in kernels.items():
         errs = dict.fromkeys([(2, torch.float32), (2, bf16), *extra,
                               (128, bf16)], 0.0)
+        at = {bd: {} for bd in timed}
         ms = plain_ms = bound = bytes_ms = ops_ms = dev_ms = 0.0
         library_ms = library_dev_ms = None
         for tag, calls, make in cases:
@@ -485,6 +499,24 @@ def phase_kernels(dev, gpu, kernels, per="forward", extra=()):
                 case = make(batch, dt)
                 err = compare(case.kern(), case.plain(), case.tol or dt)
                 errs[batch, dt] = max(errs[batch, dt], err)
+                if (batch, dt) not in at:
+                    continue
+                t = {"ms": time_ms(case.kern, 10),
+                     "device_ms": device_time(case.kern, 10),
+                     "bound_ms": case.bound_ms()}
+                if case.library is not None:
+                    t["library_ms"] = time_ms(case.library, 10)
+                    t["library_device_ms"] = device_time(case.library, 10)
+                for k, v in t.items():
+                    at[batch, dt][k] = at[batch, dt].get(k, 0.0) + calls * v
+                log(f"kernel {name} [{tag}] x{calls}/{per}: b{batch} "
+                    f"{DTAG[dt]} {t['ms']:.4f} ms (device "
+                    f"{t['device_ms']:.4f} ms), library "
+                    + (f"{t['library_ms']:.4f} ms (device "
+                       f"{t['library_device_ms']:.4f} ms)"
+                       if "library_ms" in t else "none")
+                    + f", bound {t['bound_ms']:.4f} ms ({case.bound_by()}) "
+                    f"| {gpu}")
             # case: the batch-128 bf16 call, already checked
             k_ms, p_ms = time_ms(case.kern, 10), time_ms(case.plain, 3)
             kd_ms = device_time(case.kern, 10)
@@ -507,6 +539,15 @@ def phase_kernels(dev, gpu, kernels, per="forward", extra=()):
                 f"{case.bound_ms():.4f} ms ({case.bound_by()}), max abs err "
                 f"{err:.3e} | {gpu}")
             del case
+        timed_keys = {}
+        for (b, d), t in at.items():
+            timed_keys.update({f"{k}_b{b}_{DTAG[d]}": t.get(k) for k in keys})
+            log(f"kernel {name}: per b{b} {DTAG[d]} {per} {t['ms']:.3f} ms "
+                f"(device {t['device_ms']:.3f} ms), library "
+                + (f"{t['library_ms']:.3f} ms (device "
+                   f"{t['library_device_ms']:.3f} ms)" if "library_ms" in t
+                   else "none")
+                + f", bound {t['bound_ms']:.4f} ms | {gpu}")
         log(f"kernel {name}: max abs err " + ", ".join(
             f"b{b} {DTAG[d]} {e:.3e}" for (b, d), e in errs.items())
             + f"; per b128 bf16 {per} "
@@ -523,7 +564,7 @@ def phase_kernels(dev, gpu, kernels, per="forward", extra=()):
             bound_ms=bound,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=library_ms, device_ms=dev_ms,
-            library_device_ms=library_dev_ms)
+            library_device_ms=library_dev_ms, **timed_keys)
     torch.cuda.empty_cache()
     return results
 
@@ -1690,6 +1731,7 @@ def phase_selective_scan_backward(dev, gpu):
 # --- phase 21: test-set inference ------------------------------------------
 
 TEST_DEPTH = 40                 # slices per case; real Synapse cases: 85-198
+EXACT_DEPTH = 8                 # slices per case of the exact-predictor check
 TEST_BATCH = 32                 # predict_volume's batch
 ACDC_SHAPE = (10, 256, 216)
 
@@ -1838,9 +1880,10 @@ def phase_test_set(dev, gpu):
         log(f"test set (a): Lightning checkpoint of gm_tiny ({len(want)} "
             f"tensors) loaded on the card bitwise equal")
 
-        # (b) the exact predictor: zoom, argmax, zoom-back and metrics
-        cases = blob_cases(2, (TEST_DEPTH, 512, 512), 9, SEED + 20)
-        exact = [dict(c, image=c["label"].astype(np.float32)) for c in cases]
+        # (b) the exact predictor: zoom, argmax, zoom-back and metrics; exact
+        # at any depth, so on short cases (the host metrics scale with it)
+        exact = [dict(c, image=c["label"].astype(np.float32)) for c in
+                 blob_cases(2, (EXACT_DEPTH, 512, 512), 9, SEED + 20)]
         summary, glob, pred_ms, metric_ms, _ = timed_inference(
             exact, ExactPredictor(9, dev), logger, (512, 512))
         perfect = {"dice": 1.0, "jaccard": 1.0, "hd95": 0.0, "asd": 0.0}
@@ -1848,20 +1891,28 @@ def phase_test_set(dev, gpu):
             if m != perfect:
                 fail(f"exact predictor: {name} scores {m}, expected "
                      f"{perfect}")
-        log(f"test set (b): exact predictor, 2 cases {cases[0]['label'].shape}"
+        log(f"test set (b): exact predictor, 2 cases {exact[0]['label'].shape}"
             f", patch 512: all 8 classes and global dice 1 jaccard 1 hd95 0 "
             f"asd 0; predict_volume {fmt_ms(pred_ms)} ms, host metrics (every "
             f"class on both sides) {fmt_ms(metric_ms)} ms per case")
 
-        # (c) the loaded gm_tiny on two Synapse-like cases, fp32
+        # (c) the loaded gm_tiny on two Synapse-like cases, fp32: both served
+        # and timed, the first also scored (the host metrics, ~1 min a case,
+        # read the same on either)
+        cases = blob_cases(2, (TEST_DEPTH, 512, 512), 9, SEED + 20)
         predict_volume(model, cases[0]["image"][:32])          # warm-up
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         summary, glob, pred_ms, metric_ms, maps = timed_inference(
-            cases, model, logger, (IMG, IMG))
+            cases[:1], model, logger, (IMG, IMG))
+        t0 = time.perf_counter()
+        served = predict_volume(model, cases[1]["image"], (IMG, IMG))
+        pred_ms.append((time.perf_counter() - t0) * 1e3)
         counts = dict(_build.launch_counts)
         forwards = -(-TEST_DEPTH // TEST_BATCH)
         check_counts(counts, 2 * forwards, "test set: gm_tiny on 2 cases")
+        if served.shape != cases[1]["label"].shape:
+            fail(f"test set: case 1 served as {served.shape}")
         for name, (idx, _) in inference.CLASS_COLOR_MAPS[9].items():
             # the label holds every class; hd95 and asd are NaN exactly
             # where no case's prediction holds it
@@ -1874,15 +1925,15 @@ def phase_test_set(dev, gpu):
         if not (math.isfinite(glob["dice"]) and math.isfinite(glob["jaccard"])
                 and math.isfinite(glob["hd95"]) == any(map(np.any, maps))):
             fail(f"test set: global {glob}")
-        card = sum(pred_ms) / (sum(pred_ms) + sum(metric_ms))
+        card = pred_ms[0] / (pred_ms[0] + metric_ms[0])
         log(f"test set (c): gm_tiny fp32 on 2 Synapse-like cases "
             f"{cases[0]['label'].shape}, batch {TEST_BATCH} ({forwards} "
             f"forward(s) per case, the last padded): predict_volume "
             f"{fmt_ms(pred_ms)} ms per case "
             f"({TEST_DEPTH * 1e3 / statistics.mean(pred_ms):.2f} slices/s "
-            f"fp32), host metrics {fmt_ms(metric_ms)} ms per case "
-            f"(predict_volume's share of run_inference {card:.4f}); global "
-            f"{glob}; launches {counts} | {gpu}")
+            f"fp32), host metrics of case 0 {fmt_ms(metric_ms)} ms "
+            f"(predict_volume's share of its run_inference {card:.4f}); "
+            f"global {glob}; launches {counts} | {gpu}")
         # the first batch of case 0 as predict_volume hands it to the model
         # (launches already read): card against CPU, then the forward timed
         x = (zoom_slices(torch.from_numpy(
@@ -2414,7 +2465,8 @@ def main() -> int:
     # 21) and of training from the command line (phase 22)
     kernels = timed("3 kernels", phase_kernels, dev, gpu, kernel_cases(dev),
                     "forward", [(TEST_BATCH, torch.float32),
-                                (TRAIN_BATCH, torch.float32)])
+                                (TRAIN_BATCH, torch.float32)],
+                    [(TEST_BATCH, torch.float32)])
     model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
     base = timed("6 throughput", phase_throughput, model, dev, gpu)

@@ -195,6 +195,63 @@ def test_ffn_gemm_kernel_sums_every_k_column(dev, KN, fc2):
         assert not close(got, ffn_gemm_ref(a[:, :K - 28], w[:K - 28], b, od))
 
 
+# (M, K, N): the six fc1/fc2 shapes of a b2 forward (M = 2 * H * W), then M 1
+# and M 200 (not a multiple of a tile's rows), N 1 / 87 (rows that are no
+# whole float4s) / 348 / 1392, K 4 (one stage), 345 (padded to 348) and
+# 1392, and three b32 shapes; both tiles run, 128 x 128 (N > 64) and
+# 256 x 64 (N <= 64).
+F32_GEMM = [(392, 348, 1392), (392, 1392, 348), (1568, 128, 512),
+            (1568, 512, 128), (6272, 64, 256), (6272, 256, 64),
+            (1, 1392, 348), (200, 345, 87), (200, 4, 1), (391, 1392, 1),
+            (1000, 64, 1392), (6272, 348, 87), (6272, 348, 1392),
+            (25088, 512, 128), (100352, 256, 64)]
+
+
+@pytest.mark.parametrize("MKN", F32_GEMM,
+                         ids=lambda s: "M{}-K{}-N{}".format(*s))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ffn_gemm_kernel_sums_every_k_column_fp32(dev, MKN, offset):
+    """The fp32-weight GEMM (the CLIs' fp32 route) against ffn_gemm_ref at
+    the fp32 tolerance, on nn.Linear's (N, K) weight as CustomFfn passes it
+    (no copy) and, with ``offset`` 1, on an A whose base is one element
+    off 16 bytes (the wrapper copies it). Two calls give the same bits, and
+    the plain product without the last 28 columns of K fails the
+    tolerance."""
+    M, K, N = MKN
+    g = torch.Generator().manual_seed(M + K + N)
+    a = _rand(g, (M * K + offset,), dev)[offset:].view(M, K)
+    w = _rand(g, (N, K), dev, .05).t()
+    b = _rand(g, (N,), dev, .1)
+
+    def close(got, want):
+        return torch.allclose(got, want, rtol=1e-4,
+                              atol=1e-4 * want.abs().max().item())
+    got = ffn_gemm(a, w, b, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert torch.isfinite(got).all()
+    assert close(got, ffn_gemm_ref(a, w, b, torch.float32))
+    assert torch.equal(got, ffn_gemm(a, w, b, torch.float32))
+    if K > 28:
+        assert not close(got, ffn_gemm_ref(a[:, :K - 28], w[:K - 28], b,
+                                           torch.float32))
+
+
+def test_ffn_gemm_fp32_reads_linear_weight_in_place(dev):
+    """CustomFfn's fp32 GEMMs launch on the weight's own storage: the
+    operand helper returns ``fc.weight.t()``'s (N, K) storage itself, so a
+    forward makes no weight copy."""
+    from ceigm_unet_tpu_torch.ops.ffn import gemm_operands
+    fc = torch.nn.Linear(348, 1392).to(dev)
+    a = torch.randn((392, 348), device=dev)
+    ac, wc = gemm_operands(a, fc.weight.t())
+    assert ac.data_ptr() == a.data_ptr()
+    assert wc.data_ptr() == fc.weight.data_ptr()
+    with torch.no_grad():
+        got = ffn_gemm(a, fc.weight.t(), fc.bias, torch.float32)
+        want = ffn_gemm_ref(a, fc.weight.t(), fc.bias, torch.float32)
+    _close(got, want, "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 # batch 32 at 28->56 (12.8M outputs) runs many blocks; C 348 (cg 87) has
 # channel items that straddle two groups; C 12 (cg 3) has groups narrower

@@ -295,6 +295,63 @@ def test_gemm_operands_pad_k_for_tma(fc2):
     assert w3.is_contiguous() and torch.equal(w3, wp)
 
 
+def test_gemm_operands_fp32_pass_linear_weight_storage():
+    """The fp32 route's operands at CustomFfn's fp32 shapes: nn.Linear's
+    (N, K) weight, passed as ``fc.weight.t()``, and a contiguous x come back
+    as the same storage (same data_ptr): a forward copies no weight."""
+    for K, N in ((348, 1392), (1392, 348), (64, 256), (256, 64)):
+        fc = torch.nn.Linear(K, N)
+        a = torch.randn((50, K))
+        ac, wc = gemm_operands(a, fc.weight.t())
+        assert ac.data_ptr() == a.data_ptr()
+        assert wc.data_ptr() == fc.weight.data_ptr()
+        assert wc.shape == (N, K)
+
+
+@pytest.mark.parametrize("layout", ["strided", "misaligned", "kn_weight"])
+def test_gemm_operands_fp32_copy_what_float4_loads_cannot_take(layout):
+    """A non-contiguous operand, one whose base is one element off 16
+    bytes, and a weight stored (K, N) are copied into contiguous, 16-byte
+    aligned (M, K) / (N, K) storage with the same values."""
+    rng = np.random.default_rng(11)
+    M, K, N = 40, 348, 87
+    a = torch.from_numpy(rng.standard_normal((M, 2 * K), np.float32))
+    w = torch.from_numpy(rng.standard_normal((N, K), np.float32))
+    if layout == "strided":
+        a_in, w_in = a[:, ::2], w.t()
+    elif layout == "misaligned":
+        a_in = a.reshape(-1)[1:M * K + 1].view(M, K)
+        w_in = torch.empty(N * K + 1)[1:].view(N, K).copy_(w).t()
+    else:
+        a_in, w_in = a[:, :K].contiguous(), w.t().contiguous()
+    assert not (a_in.is_contiguous() and a_in.data_ptr() % 16 == 0
+                and w_in.t().is_contiguous() and w_in.data_ptr() % 16 == 0)
+    ac, wc = gemm_operands(a_in, w_in)
+    for got, want in ((ac, a_in), (wc, w_in.t())):
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("K", [345, 1, 4, 347])
+def test_gemm_operands_fp32_pad_k_to_whole_float4s(K):
+    """K not a multiple of 4 is padded with zero columns to the next one
+    (the fp32 kernel loads float4s along K), and ffn_gemm_ref on the
+    padded operands equals ffn_gemm_ref on the inputs."""
+    rng = np.random.default_rng(K)
+    M, N = 30, 87
+    a = torch.from_numpy(rng.standard_normal((M, K), np.float32))
+    w = torch.from_numpy(rng.standard_normal((N, K), np.float32) * 0.05)
+    bias = torch.from_numpy(rng.standard_normal(N, np.float32))
+    ac, wc = gemm_operands(a, w.t())
+    Kp = -(-K // 4) * 4
+    assert ac.shape == (M, Kp) and wc.shape == (N, Kp)
+    assert not ac[:, K:].any() and not wc[:, K:].any()
+    assert torch.equal(ac[:, :K], a) and torch.equal(wc[:, :K], w)
+    torch.testing.assert_close(
+        ffn_gemm_ref(ac, wc.t(), bias, torch.float32),
+        ffn_gemm_ref(a, w.t(), bias, torch.float32), rtol=1e-6, atol=1e-6)
+
+
 # --- DySample grouped grid-sample ---------------------------------------------
 
 def _dysample_grid(rng, B, H, W, g, offset_std):
