@@ -9,11 +9,16 @@ run with a ``ValueError`` naming its cases and their shapes.
 
     python -m ceigm_unet_tpu_torch.cli.train_acdc --data-dir D \\
         [--device cuda] [--max-steps N] ...
+
+``--distributed`` trains data-parallel under torchrun, as
+``cli/train_synapse.py`` describes.
 """
 from __future__ import annotations
 
 from ceigm_unet_tpu_torch.cli.train_synapse import parse_args
 from ceigm_unet_tpu_torch.data.datasets import ACDCDataset
+from ceigm_unet_tpu_torch.parallel.mesh import (close_data_parallel,
+                                                init_data_parallel)
 from ceigm_unet_tpu_torch.train.config import ACDC_CONFIG
 from ceigm_unet_tpu_torch.train.loop import run_training
 
@@ -25,8 +30,10 @@ def load_val_volumes(data_dir: str, list_dir: str):
 
 
 def main(argv=None):
-    cfg, max_steps, device = parse_args(argv, ACDC_CONFIG,
-                                        __doc__.split("\n\n")[0])
+    cfg, max_steps, device, distributed = parse_args(
+        argv, ACDC_CONFIG, __doc__.split("\n\n")[0])
+    if distributed:    # torchrun's group, at the size torchrun gave it
+        init_data_parallel(None, device=device)
     train_ds = ACDCDataset(cfg.data_dir, "train", cfg.list_dir,
                            cfg.img_size, seed=cfg.seed,
                            augment=not cfg.device_aug,
@@ -37,4 +44,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        close_data_parallel()

@@ -7,6 +7,12 @@ Train slices are ``<data-dir>/train_npz/*.npz``, validation volumes
 
     python -m ceigm_unet_tpu_torch.cli.train_synapse --data-dir D \\
         [--device cuda] [--max-steps N] [--device-aug] ...
+
+Data-parallel, one process per card, under torchrun (``--batch-size`` is
+the global batch, which the ranks must divide):
+
+    torchrun --standalone --nproc_per_node=N \\
+        -m ceigm_unet_tpu_torch.cli.train_synapse --distributed --data-dir D
 """
 from __future__ import annotations
 
@@ -14,6 +20,8 @@ import argparse
 import dataclasses
 
 from ceigm_unet_tpu_torch.data.datasets import SynapseDataset
+from ceigm_unet_tpu_torch.parallel.mesh import (close_data_parallel,
+                                                init_data_parallel)
 from ceigm_unet_tpu_torch.train.config import SYNAPSE_CONFIG, TrainConfig
 from ceigm_unet_tpu_torch.train.loop import run_training
 
@@ -26,7 +34,7 @@ def load_val_volumes(data_dir: str, list_dir: str):
 
 def parse_args(argv, cfg: TrainConfig, description: str):
     """The training CLIs' flags, defaults from ``cfg``. Returns (config,
-    max_steps, device)."""
+    max_steps, device, distributed)."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--data-dir", default=cfg.data_dir)
     p.add_argument("--list-dir", default=cfg.list_dir)
@@ -45,6 +53,10 @@ def parse_args(argv, cfg: TrainConfig, description: str):
                         "data/device_aug.py)")
     p.add_argument("--device", default="cuda",
                    help="where the model trains (default: cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel training in torchrun's process group "
+                        "(one rank per card; NCCL on the card, gloo with "
+                        "--device cpu)")
     a = p.parse_args(argv)
     cfg = dataclasses.replace(
         cfg, data_dir=a.data_dir, list_dir=a.list_dir, log_dir=a.log_dir,
@@ -52,12 +64,14 @@ def parse_args(argv, cfg: TrainConfig, description: str):
         max_epochs=a.max_epochs, seed=a.seed,
         pretrained_encoder=a.pretrained_encoder,
         compute_dtype=a.compute_dtype, device_aug=a.device_aug)
-    return cfg, a.max_steps, a.device
+    return cfg, a.max_steps, a.device, a.distributed
 
 
 def main(argv=None):
-    cfg, max_steps, device = parse_args(argv, SYNAPSE_CONFIG,
-                                        __doc__.split("\n\n")[0])
+    cfg, max_steps, device, distributed = parse_args(
+        argv, SYNAPSE_CONFIG, __doc__.split("\n\n")[0])
+    if distributed:    # torchrun's group, at the size torchrun gave it
+        init_data_parallel(None, device=device)
     train_ds = SynapseDataset(cfg.data_dir + "/train_npz", "train",
                               cfg.list_dir, cfg.img_size, seed=cfg.seed,
                               augment=not cfg.device_aug,
@@ -68,4 +82,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        close_data_parallel()

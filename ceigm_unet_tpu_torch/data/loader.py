@@ -13,7 +13,10 @@ does the port, and its batches are the JAX loader's, byte for byte:
   index, and persistent workers need no state of their own;
 - a batch is ``{"image": (B, H, W, 1) float32, "label": (B, H, W) int32,
   "case_name": [...]}``, the image normalised by ``(x - 0.5) / 0.5``
-  unless ``normalize=False`` (the on-device augmentation's raw feed).
+  unless ``normalize=False`` (the on-device augmentation's raw feed);
+- for data-parallel training, ``shard=(rank, world)`` loads only the
+  rank's contiguous rows of each global batch: the same samples, made from
+  the same generators, as one process loads for those rows.
 
 Workers start by ``spawn`` and import only numpy, scipy, torch's CPU side
 and the dataset's module: they never touch CUDA. As torch does with a
@@ -53,9 +56,19 @@ class _EpochBatches(tud.Sampler):
     """Batches of ``(idx, epoch)`` in the JAX loader's order."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool, seed: int,
-                 drop_last: bool):
+                 drop_last: bool, shard: Tuple[int, int] = (0, 1)):
         self.n, self.batch_size, self.shuffle = n, batch_size, shuffle
         self.seed, self.drop_last = seed, drop_last
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"{world} ranks do not divide the batch of "
+                             f"{batch_size}")
+        if world > 1 and not drop_last:
+            raise ValueError("a sharded loader needs drop_last: the last "
+                             "partial batch would leave ranks unequal or "
+                             "empty")
+        per = batch_size // world
+        self.rows = slice(rank * per, (rank + 1) * per)
         self.epoch = 0
 
     def __len__(self):
@@ -70,7 +83,7 @@ class _EpochBatches(tud.Sampler):
                  if self.drop_last else self.n)
         for start in range(0, limit, self.batch_size):
             yield [(int(i), self.epoch)
-                   for i in order[start:start + self.batch_size]]
+                   for i in order[start:start + self.batch_size][self.rows]]
 
 
 def collate(samples, normalize: bool = True) -> Dict:
@@ -100,16 +113,18 @@ class DataLoader:
     ``get(idx, rng)``) for the epoch last given to :meth:`set_epoch`.
     ``num_workers`` 0 loads in this process; more start that many
     ``spawn`` workers, kept across epochs. ``pin_memory`` pins each batch
-    for an asynchronous copy to the card."""
+    for an asynchronous copy to the card. ``batch_size`` is the global
+    batch; ``shard=(rank, world)`` loads the rank's rows of it (with
+    ``drop_last`` only, so that every rank holds a full share)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 6, seed: int = 0,
                  drop_last: bool = True, normalize: bool = True,
-                 pin_memory: bool = True):
+                 pin_memory: bool = True, shard: Tuple[int, int] = (0, 1)):
         self.ds = dataset
         self.batch_size = batch_size
         self.sampler = _EpochBatches(len(dataset), batch_size, shuffle, seed,
-                                     drop_last)
+                                     drop_last, shard)
         workers = dict(multiprocessing_context="spawn",
                        persistent_workers=True) if num_workers > 0 else {}
         self.loader = tud.DataLoader(

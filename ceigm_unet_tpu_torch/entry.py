@@ -3,10 +3,11 @@
 them for the JAX package; its training step on a seeded synthetic batch,
 the step ``tools/bench_train.py`` runs for the JAX package; and the legacy
 MSVM-UNet (VSSM tiny_0230s encoder) with an example input, and its training
-step on the same recipe."""
+step on the same recipe; and the multi-process dry run
+(``dryrun_multichip``)."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from ceigm_unet_tpu_torch.train.config import SYNAPSE_CONFIG
 from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
                                                   make_train_step,
                                                   param_groups)
+from ceigm_unet_tpu_torch.utils.debug import DebugGuards
 
 # Synapse: 2211 training slices at batch 48, the last partial batch dropped
 SYNAPSE_STEPS_PER_EPOCH = 2211 // 48
@@ -25,31 +27,37 @@ SYNAPSE_STEPS_PER_EPOCH = 2211 // 48
 def entry(device: Union[str, torch.device] = "cuda",
           dtype: torch.dtype = torch.float32,
           seed: int = 0, quant_scan: bool = False, dwconv: str = "library",
-          dysample_grouped: bool = True) -> Tuple[MSVMUNet, torch.Tensor]:
+          dysample_grouped: bool = True,
+          debug: Optional[DebugGuards] = None
+          ) -> Tuple[MSVMUNet, torch.Tensor]:
     """(model, x): the seeded flagship model in eval mode on ``device`` and
     a zero (1, 224, 224, 1) NHWC input there; ``model(x)`` gives logits.
     ``quant_scan`` (``CEIGM_QUANT``), ``dwconv`` (``CEIGM_BLDW``) and
     ``dysample_grouped`` (``CEIGM_GS_GROUP``) select the model's kernel
     routes, as ``build_model`` describes; with ``quant_scan`` (inference
     only) the model's parameters do not require grad, so ``model(x)`` runs
-    with grad mode on or off."""
+    with grad mode on or off. ``debug``: the debug guards the model runs
+    (``utils/debug.py``; None, the default, runs none)."""
     model = build_model(num_classes=9, enc_name="gm_tiny", dtype=dtype,
                         device=device, seed=seed, quant_scan=quant_scan,
-                        dwconv=dwconv, dysample_grouped=dysample_grouped)
+                        dwconv=dwconv, dysample_grouped=dysample_grouped,
+                        debug=debug)
     return model, torch.zeros((1, 224, 224, 1), device=device)
 
 
 def legacy_entry(device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.float32,
-                 seed: int = 0) -> Tuple[MSVMUNetLegacy, torch.Tensor]:
+                 seed: int = 0, debug: Optional[DebugGuards] = None
+                 ) -> Tuple[MSVMUNetLegacy, torch.Tensor]:
     """(model, x) for the legacy MSVM-UNet (VSSM ``tiny_0230s`` encoder +
     the published decoder, 9 classes): the seeded model in eval mode on
     ``device`` and a zero (1, 224, 224, 1) NHWC input there.
     ``predict_volume`` serves it as it serves ``entry()``'s model;
     ``model(x)`` runs with grad mode on or off (every scan op on its path
-    has a backward)."""
+    has a backward). ``debug`` as in :func:`entry`."""
     model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
-                               dtype=dtype, device=device, seed=seed)
+                               dtype=dtype, device=device, seed=seed,
+                               debug=debug)
     return model, torch.zeros((1, 224, 224, 1), device=device)
 
 
@@ -125,3 +133,14 @@ def legacy_train_entry(device: Union[str, torch.device] = "cuda",
         ce_weight=cfg.ce_weight, dc_weight=cfg.dc_weight)
     return model, step, synthetic_batch(batch, cfg.img_size,
                                         cfg.num_classes, seed, device)
+
+
+def dryrun_multichip(n: int, device: str = "cuda") -> None:
+    """The multi-process dry run (``parallel/dryrun.py``): n spawned ranks
+    run data-parallel gm_tiny steps, the sequence-parallel selective scan
+    and the tiny step's one-process-vs-n equivalence, with and without
+    on-device augmentation. ``device`` "cuda" needs n cards (NCCL, one per
+    rank) and raises with fewer; "cpu" runs gloo. Raises on any failed
+    check."""
+    from ceigm_unet_tpu_torch.parallel import dryrun
+    dryrun.run(n, device)

@@ -10,6 +10,12 @@ Counterpart of ``ceigm_unet_tpu/losses.py``, with its semantics:
 
 Logits are (B, H, W, C) NHWC in the compute dtype and are upcast here;
 labels are (B, H, W) integers.
+
+With a data-parallel group active (``parallel/mesh.py``), each rank holds
+its rows of the global batch and every loss is the global batch's: the
+Dice term's per-class sums and the means' sums and counts are summed over
+the ranks (``mesh.all_reduce_sum``, differentiable), so every rank returns
+the same global loss.
 """
 from __future__ import annotations
 
@@ -17,6 +23,17 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ceigm_unet_tpu_torch.parallel import mesh
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the global batch."""
+    if mesh.active_group() is None:
+        return t.mean()
+    s = mesh.all_reduce_sum(torch.stack([t.sum(),
+                                         t.new_tensor(float(t.numel()))]))
+    return s[0] / s[1]
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -33,9 +50,9 @@ def multiclass_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
     target = one_hot(labels, num_classes)
     smooth = 1e-5
     # global (batch-wide) per-class sums, the reference convention
-    intersect = (probs * target).sum((0, 1, 2))
-    z = (probs * probs).sum((0, 1, 2))
-    y = (target * target).sum((0, 1, 2))
+    intersect, z, y = mesh.all_reduce_sum(torch.stack([
+        (probs * target).sum((0, 1, 2)), (probs * probs).sum((0, 1, 2)),
+        (target * target).sum((0, 1, 2))]))
     dice = 1.0 - (2.0 * intersect + smooth) / (z + y + smooth)
     if weight is not None:
         dice = dice * weight
@@ -49,9 +66,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     oh = one_hot(labels, logits.shape[-1])
     ll = (logp * oh).sum(-1)
     if class_weights is None:
-        return -ll.mean()
+        return -_mean(ll)
     w = (oh * class_weights.float()).sum(-1)
-    return -(ll * w).sum() / w.sum()
+    if mesh.active_group() is None:
+        return -(ll * w).sum() / w.sum()
+    s = mesh.all_reduce_sum(torch.stack([(ll * w).sum(), w.sum()]))
+    return -s[0] / s[1]
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
@@ -64,7 +84,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
     fl = -target * ((1.0 - p) ** gamma) * logp
     if alpha is not None:
         fl = fl * alpha
-    return fl.mean()
+    return _mean(fl)
 
 
 def dice_ce_loss(logits: torch.Tensor, labels: torch.Tensor,

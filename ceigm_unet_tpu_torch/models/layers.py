@@ -16,6 +16,7 @@ from torch import nn
 
 from ceigm_unet_tpu_torch.ops.activations import gelu
 from ceigm_unet_tpu_torch.ops.ffn import custom_ffn_fused, inception_composite
+from ceigm_unet_tpu_torch.parallel import mesh
 
 
 class Linear(nn.Linear):
@@ -45,7 +46,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     semantics (``nn.BatchNorm(momentum=0.9)`` as the JAX package uses it):
     in training, the batch mean and the biased variance over (B, H, W) in
     fp32, and running statistics updated as 0.9 * old + 0.1 * batch with
-    that biased variance (torch's own update uses the unbiased one)."""
+    that biased variance (torch's own update uses the unbiased one). With
+    a data-parallel group active (``parallel/mesh.py``), the batch is the
+    global one: the mean and then the variance are summed over the ranks,
+    and every rank updates the same running statistics."""
 
     MOMENTUM = 0.9
 
@@ -57,7 +61,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         rounds to the compute dtype)."""
         xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+            var, mean = (torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+                         if mesh.active_group() is None
+                         else _global_var_mean(xf))
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -70,11 +76,25 @@ class BatchNorm2d(nn.BatchNorm2d):
             + self.bias
 
 
+def _global_var_mean(xf: torch.Tensor):
+    """(biased variance, mean) per channel of (B, H, W, C) ``xf`` over the
+    data-parallel group's global batch, two passes as ``torch.var_mean``;
+    differentiable."""
+    C = xf.shape[-1]
+    s = mesh.all_reduce_sum(torch.cat([xf.sum((0, 1, 2)),
+                                       xf.new_full((1,), xf.numel() // C)]))
+    mean = s[:C] / s[C]
+    var = mesh.all_reduce_sum(((xf - mean) ** 2).sum((0, 1, 2))) / s[C]
+    return var, mean
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth; the identity in eval. In training the
     keep masks (one per sample, kept with probability 1 - rate, kept
     samples scaled by 1/keep) come from the ``torch.Generator`` passed to
-    ``forward``. There is no draw from torch's global generator."""
+    ``forward``. There is no draw from torch's global generator. With a
+    data-parallel group active, the masks of the global batch are drawn and
+    this rank keeps its rows (``mesh.global_rows``)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -87,9 +107,10 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in training needs a torch.Generator "
                              "(pass generator=)")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator,
-                          device=generator.device) < keep
+        total, first = mesh.global_rows(x.shape[0])
+        shape = (total,) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=generator.device
+                          )[first:first + x.shape[0]] < keep
         return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 

@@ -21,6 +21,7 @@ from ceigm_unet_tpu_torch.models.groupmamba import (GROUPMAMBA_CONFIGS,
                                                     GroupMamba)
 from ceigm_unet_tpu_torch.models.layers import Conv2d, Linear
 from ceigm_unet_tpu_torch.models.ss2d import SS2DGroup, init_ssm_params
+from ceigm_unet_tpu_torch.utils.debug import DebugGuards, attach
 
 
 class _Encoder(nn.Module):
@@ -89,7 +90,8 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
                 seed: int = 0,
                 decoder_drop_path_rate: float = 0.2,
                 quant_scan: bool = False, dwconv: str = "library",
-                dysample_grouped: bool = True) -> MSVMUNet:
+                dysample_grouped: bool = True,
+                debug: Optional[DebugGuards] = None) -> MSVMUNet:
     """Flagship factory: random weights from a CPU ``torch.Generator``
     seeded with ``seed``, in eval mode, on ``device`` (the card unless the
     caller asks for ``"cpu"``). Parameters stay fp32; ``dtype`` is the
@@ -109,6 +111,10 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
     - ``dysample_grouped`` (``CEIGM_GS_GROUP``): True samples DySample's
       four groups in one ``dysample_grid_sample``; False takes the per-group
       route through the single-grid ``grid_sample_bilinear_fused``.
+
+    ``debug``: the nan/inf checks and captures the scan modules run
+    (``utils/debug.py``, the counterpart of ``CEIGM_DEBUG_NANCHECK`` /
+    ``CEIGM_DEBUG_CAPTURE``); None, the default, runs none.
     """
     model = MSVMUNet(num_classes=num_classes, enc_name=enc_name, dtype=dtype,
                      decoder_drop_path_rate=decoder_drop_path_rate,
@@ -117,4 +123,4 @@ def build_model(num_classes: int = 9, enc_name: str = "gm_tiny",
     init_weights(model, torch.Generator().manual_seed(seed))
     if quant_scan:
         model.requires_grad_(False)
-    return model.to(device).eval()
+    return attach(model, debug).to(device).eval()

@@ -76,9 +76,13 @@ class QuadGroupSS2D(nn.Module):
     whose bf16 output is cast to the compute dtype before the z-gate. It
     applies at every batch (the JAX gate takes it only below batch 64 or
     with ``CEIGM_BLAST`` <= 1) and is inference-only: a forward with inputs
-    that require grad raises."""
+    that require grad raises.
+
+    ``debug``: the model's ``utils.debug.DebugGuards`` (None: no guard), at
+    ``quad_pergroup.y`` and ``quad_sandwich.out``."""
 
     DIRECTIONS = (1, 2, 3, 4)
+    debug = None
 
     def __init__(self, dim: int, quant_scan: bool = False,
                  dwconv: str = "library"):
@@ -156,8 +160,12 @@ class QuadGroupSS2D(nn.Module):
                 xc.view(B, L, K, D).permute(0, 2, 1, 3),
                 dtv.permute(0, 2, 1, 3), *BC, *fw["scan"], H, W,
                 self.DIRECTIONS)                               # (B, L, Din)
-        out = (y.view(B * L, Din) * z) @ fw["w_out"]
-        return out.view(B, H, W, C)
+        if self.debug is not None:
+            y = self.debug.check_nan_inf("quad_pergroup.y", y)
+        out = ((y.view(B * L, Din) * z) @ fw["w_out"]).view(B, H, W, C)
+        if self.debug is not None:
+            out = self.debug.check_nan_inf("quad_sandwich.out", out)
+        return out
 
     def forward(self, x):
         return self.scan_groups(x)
@@ -184,11 +192,12 @@ def init_ssm_params(m: nn.Module, generator: torch.Generator) -> None:
 
 
 def ssm_scan_core(xs, x_proj_w, dt_w, dt_b, A_logs, Ds, d_state: int,
-                  dt_rank: int) -> torch.Tensor:
+                  dt_rank: int, debug=None) -> torch.Tensor:
     """(B, K, D, L) post-conv activations -> ys (B, K, D, L) fp32: the
     projections, then ONE ``selective_scan`` with the K directions folded
     into its channel axis and B/C grouped per direction (the JAX package's
-    ``ssm_scan_core``)."""
+    ``ssm_scan_core``). ``debug`` (a ``DebugGuards``, or None) checks ys at
+    ``ssm_scan_core.ys`` and captures us/dts/Bs/Cs/ys as ``ssm_scan_core``."""
     B, K, D, L = xs.shape
     x_dbl = torch.einsum("bkdl,kcd->bkcl", xs, x_proj_w.to(xs.dtype))
     dts, Bs, Cs = torch.split(x_dbl, [dt_rank, d_state, d_state], dim=2)
@@ -197,6 +206,9 @@ def ssm_scan_core(xs, x_proj_w, dt_w, dt_b, A_logs, Ds, d_state: int,
                         -torch.exp(A_logs.float()), Bs, Cs, Ds,
                         dt_b.reshape(-1), delta_softplus=True,
                         out_dtype=torch.float32)
+    if debug is not None:
+        ys = debug.check_nan_inf("ssm_scan_core.ys", ys)
+        debug.capture("ssm_scan_core", us=xs, dts=dts, Bs=Bs, Cs=Cs, ys=ys)
     return ys.reshape(B, K, D, L)
 
 
@@ -216,9 +228,13 @@ class SS2D(nn.Module):
     Any other ``d_state`` takes cross_scan -> :func:`ssm_scan_core`
     (``selective_scan``) -> cross_merge. The direction sum is followed by
     ``out_norm`` (fp32) and ``out_proj``.
+
+    ``debug``: the model's ``utils.debug.DebugGuards`` (None: no guard), at
+    ``quad_ssm_nhwc.y`` (d_state 1) or in :func:`ssm_scan_core`.
     """
 
     DIRECTIONS = (1, 2, 3, 4)
+    debug = None
 
     def __init__(self, d_model: int, d_state: int = 1,
                  ssm_ratio: float = 1.0, dt_rank="auto", d_conv: int = 3,
@@ -260,6 +276,8 @@ class SS2D(nn.Module):
             -torch.exp(self.A_logs.float()).reshape(K, D),
             self.dt_projs_bias.float(), self.Ds.float().reshape(K, D), H, W,
             self.DIRECTIONS)                                   # (B, K, L, D)
+        if self.debug is not None:
+            y = self.debug.check_nan_inf("quad_ssm_nhwc.y", y)
         return y.sum(1).view(B, H, W, D)
 
     def _scan_cross(self, xc: torch.Tensor) -> torch.Tensor:
@@ -269,7 +287,7 @@ class SS2D(nn.Module):
                          dim=1)                                # (B, K, D, L)
         ys = ssm_scan_core(xs, self.x_proj_weight, self.dt_projs_weight,
                            self.dt_projs_bias, self.A_logs, self.Ds,
-                           self.d_state, self.dt_rank)
+                           self.d_state, self.dt_rank, self.debug)
         return sum(cross_merge_1d(ys[:, i], k, H, W)
                    for i, k in enumerate(self.DIRECTIONS))
 

@@ -27,6 +27,7 @@ from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                                 dw_conv)
 from ceigm_unet_tpu_torch.models.ss2d import SS2D, init_ssm_params
 from ceigm_unet_tpu_torch.ops.activations import gelu
+from ceigm_unet_tpu_torch.utils.debug import DebugGuards, attach
 
 
 class Gelu(nn.Module):
@@ -369,14 +370,18 @@ def build_legacy_model(num_classes: int = 9, enc_name: str = "tiny_0230s",
                        dtype: torch.dtype = torch.float32,
                        device: Union[str, torch.device] = "cuda",
                        seed: int = 0,
-                       decoder_drop_path_rate: float = 0.2) -> MSVMUNetLegacy:
+                       decoder_drop_path_rate: float = 0.2,
+                       debug: Optional[DebugGuards] = None
+                       ) -> MSVMUNetLegacy:
     """The legacy MSVM-UNet with random weights from a CPU
     ``torch.Generator`` seeded with ``seed``, in eval mode, on ``device``
     (the card unless the caller asks for ``"cpu"``). Parameters stay fp32;
     ``dtype`` is the compute dtype. ``decoder_drop_path_rate`` is the
-    decoder's stochastic depth (the encoder's is its config's)."""
+    decoder's stochastic depth (the encoder's is its config's). ``debug``:
+    the SS2D modules' nan/inf checks and captures (``utils/debug.py``);
+    None, the default, runs none."""
     model = MSVMUNetLegacy(num_classes=num_classes, enc_name=enc_name,
                            dtype=dtype,
                            decoder_drop_path_rate=decoder_drop_path_rate)
     init_legacy_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return attach(model, debug).to(device).eval()

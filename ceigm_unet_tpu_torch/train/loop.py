@@ -17,6 +17,15 @@ with an explicit loop, on one card:
 
 An fp32 run trains with TF32 off (``no_tf32``), the reference's precision.
 
+Data parallelism: with a process group active (``parallel.init_data_parallel``,
+one process per card), every rank builds the same model from the seed,
+loads its rows of each global batch (the loader's ``shard``) and steps on
+them (``train/trainstep.py`` averages the gradients). Rank 0 alone
+validates and writes the log file, the history and the checkpoints; its
+early-stop and hard-stop decisions are broadcast, so every rank leaves the
+loop at the same epoch and none waits in a collective for a rank that has
+left. A resume reads the same file on every rank.
+
 The per-step losses stay on the card; their mean is read once per epoch,
 so the host never waits on the card inside an epoch.
 """
@@ -41,6 +50,7 @@ from ceigm_unet_tpu_torch.convert.torch_import import (
 from ceigm_unet_tpu_torch.data.loader import DataLoader
 from ceigm_unet_tpu_torch.eval.volume import eval_single_volume
 from ceigm_unet_tpu_torch.models import MSVMUNet, build_model
+from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.train.config import TrainConfig
 from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
                                                   make_train_step,
@@ -118,16 +128,33 @@ def run_training(cfg: TrainConfig, train_ds, val_volumes=None,
     buffers, the optimizer's step count (``step.count``, which the LR
     schedule reads) and the epoch after the saved one; the AdamW moments
     restart at zero, and so does the loop's own step count (``max_steps``,
-    the rows' ``step``). Returns the model and its train step."""
+    the rows' ``step``). With a data-parallel group active (see the module
+    docstring), ``cfg.batch_size`` is the global batch and ``device`` the
+    kind of device: each rank trains on the one ``init_data_parallel``
+    set. Returns the model and its train step."""
     with (no_tf32() if cfg.compute_dtype == "float32"
           else contextlib.nullcontext()):
         return _run_training(cfg, train_ds, val_volumes, max_steps, logger,
-                             resume_from, torch.device(device))
+                             resume_from, mesh.rank_device(device))
+
+
+def _quiet_logger(name: str) -> logging.Logger:
+    """A logger that writes nothing (the ranks other than 0)."""
+    logger = logging.getLogger(f"ceigm.{name}.quiet")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
 
 
 def _run_training(cfg, train_ds, val_volumes, max_steps, logger,
                   resume_from, device):
-    logger = logger or setup_logger(cfg.log_dir, cfg.name)
+    rank, world = mesh.rank_and_size()
+    lead = rank == 0
+    if lead:
+        logger = logger or setup_logger(cfg.log_dir, cfg.name)
+    else:
+        logger = _quiet_logger(cfg.name)
     model = build_model(num_classes=cfg.num_classes, enc_name=cfg.enc_name,
                         dtype=DTYPES[cfg.compute_dtype], device=device,
                         seed=cfg.seed)
@@ -137,7 +164,8 @@ def _run_training(cfg, train_ds, val_volumes, max_steps, logger,
     loader = DataLoader(train_ds, cfg.batch_size, shuffle=True,
                         num_workers=cfg.num_workers, seed=cfg.seed,
                         normalize=not cfg.device_aug,
-                        pin_memory=device.type == "cuda")
+                        pin_memory=device.type == "cuda",
+                        shard=(rank, world))
     steps_per_epoch = max(1, len(loader))
     lr_sched = cosine_lr(cfg.lr, cfg.eta_min, cfg.max_epochs,
                          steps_per_epoch)
@@ -147,7 +175,8 @@ def _run_training(cfg, train_ds, val_volumes, max_steps, logger,
         device_aug_size=cfg.img_size if cfg.device_aug else None,
         aug_seed=cfg.seed)
     history = MetricHistory(
-        os.path.join(cfg.log_dir, f"{cfg.name}.metrics.jsonl"))
+        os.path.join(cfg.log_dir, f"{cfg.name}.metrics.jsonl")) if lead \
+        else None
 
     if cfg.pretrained_encoder:
         load_pretrained_encoder(model, cfg.pretrained_encoder, logger)
@@ -170,7 +199,8 @@ def _run_training(cfg, train_ds, val_volumes, max_steps, logger,
     stop = False
 
     for epoch in range(start_epoch, cfg.max_epochs):
-        if epoch >= cfg.stop_epoch:     # the reference's hard stop
+        # the reference's hard stop
+        if mesh.broadcast_flag(epoch >= cfg.stop_epoch, device):
             logger.info(f"hard stop at epoch {epoch}")
             break
         loader.set_epoch(epoch)
@@ -208,28 +238,29 @@ def _run_training(cfg, train_ds, val_volumes, max_steps, logger,
                 logger.info("early stop (train loss plateau)")
                 stop = True
 
-        if val_volumes is not None and should_validate(epoch, cfg):
-            model.eval()
-            dices = []
-            for vol in val_volumes:
-                metric = eval_single_volume(
-                    model, vol["image"], vol["label"], cfg.num_classes,
-                    (cfg.img_size, cfg.img_size))
-                per_class = [float(np.mean(v))
-                             for v in metric["dice"].values()]
-                dices.append(float(np.mean(per_class)))
-            val_dice = float(np.mean(dices)) if dices else 0.0
-            logger.info(f"epoch {epoch} val_mean_dice {val_dice:.4f}")
-            row["val_mean_dice"] = val_dice
-            if val_dice > best_dice:
-                best_dice = val_dice
-                save_checkpoint(cfg.ckpt_dir, f"{cfg.name}-best", model,
-                                step.count, epoch,
-                                {"val_mean_dice": val_dice})
-        history.append(**row)
-        save_checkpoint(cfg.ckpt_dir, f"{cfg.name}-last", model, step.count,
-                        epoch)
-        if stop:
+        if lead:
+            if val_volumes is not None and should_validate(epoch, cfg):
+                model.eval()
+                dices = []
+                for vol in val_volumes:
+                    metric = eval_single_volume(
+                        model, vol["image"], vol["label"], cfg.num_classes,
+                        (cfg.img_size, cfg.img_size))
+                    per_class = [float(np.mean(v))
+                                 for v in metric["dice"].values()]
+                    dices.append(float(np.mean(per_class)))
+                val_dice = float(np.mean(dices)) if dices else 0.0
+                logger.info(f"epoch {epoch} val_mean_dice {val_dice:.4f}")
+                row["val_mean_dice"] = val_dice
+                if val_dice > best_dice:
+                    best_dice = val_dice
+                    save_checkpoint(cfg.ckpt_dir, f"{cfg.name}-best", model,
+                                    step.count, epoch,
+                                    {"val_mean_dice": val_dice})
+            history.append(**row)
+            save_checkpoint(cfg.ckpt_dir, f"{cfg.name}-last", model,
+                            step.count, epoch)
+        if mesh.broadcast_flag(stop, device):
             break
     return model, step
 

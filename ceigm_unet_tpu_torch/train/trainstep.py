@@ -25,6 +25,19 @@ keeps the reference trainer's semantics (``requires_grad=False``), which
 are also what the JAX module's own docstring states: the moments stay 0.
 The parameters do not move either way, and AdamW (the live recipe)
 decays outside the moments, so it is not affected.
+
+Data parallelism (``parallel/mesh.py``): with a process group active, each
+rank steps on its rows of the global batch, computes the global loss (the
+loss's and BatchNorm's sums run over the group), and the gradients are
+averaged over the group (one all-reduce per dtype) before the optimizer
+step, as ``DistributedDataParallel`` would average them; every rank then
+holds the same parameters. The module docstring of ``parallel/mesh.py``
+gives the loss convention that makes the average the global gradient. The
+explicit all-reduce, and not ``DistributedDataParallel``, because the step
+toggles ``requires_grad`` on the encoder during the freeze and zero-fills
+missing gradients, which DDP's reducer takes only with
+``find_unused_parameters``. The device augmentation's parameters are drawn
+for the global batch, and each rank keeps its rows.
 """
 from __future__ import annotations
 
@@ -34,9 +47,10 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-from ceigm_unet_tpu_torch.data.device_aug import (device_augment,
+from ceigm_unet_tpu_torch.data.device_aug import (apply_params, sample_params,
                                                   step_generator)
 from ceigm_unet_tpu_torch.losses import dice_ce_loss
+from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.train.lr_scheduler import cosine_annealing_lr
 
 
@@ -117,7 +131,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     zoom to ``device_aug_size`` in one gather), then (x - 0.5) / 0.5, before
     the forward. Its parameters come from a generator on the batch's device
     seeded from (``aug_seed``, ``step.count``), so a step's augmentation
-    depends only on those and the batch size."""
+    depends only on those and the (global) batch size.
+
+    With a data-parallel group active the batch is this rank's rows of the
+    global batch, the returned loss is the global batch's, and the
+    gradients are averaged over the group before the optimizer steps (see
+    the module docstring)."""
     loss_fn = functools.partial(dice_ce_loss, ce_weight=ce_weight,
                                 dc_weight=dc_weight)
     enc = [g for g in optimizer.param_groups if g.get("name") == "encoder"]
@@ -138,8 +157,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         image, label = batch["image"], batch["label"]
         if device_aug_size is not None:
             gen = step_generator(aug_seed, step.count, image.device)
-            img, label = device_augment(gen, image[..., 0], label,
-                                        device_aug_size)
+            B, H, W = label.shape
+            total, first = mesh.global_rows(B)
+            prm = sample_params(gen, total, H, W, device_aug_size,
+                                image.device)
+            img, label = apply_params(
+                {k: v[first:first + B] for k, v in prm.items()},
+                image[..., 0], label, device_aug_size)
             image = ((img - 0.5) / 0.5)[..., None]
         optimizer.zero_grad(set_to_none=True)
         for p in enc["params"]:
@@ -153,6 +177,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.reduce_gradients(params)
         optimizer.step()
         step.count += 1
         return {"loss": loss.detach()}

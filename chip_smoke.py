@@ -182,7 +182,42 @@ exits non-zero without its last line:
    the fp32 tolerance, labels exactly), timed, then one epoch of
    ``run_training`` with ``device_aug``; (d) ``cli.train_acdc.main
    --max-steps 2 --device cuda`` on 64 ACDC-format slices: its history
-   row, ``acdc-last.ckpt`` and the launches of 2 frozen steps.
+   row, ``acdc-last.ckpt`` and the launches of 2 frozen steps;
+23. parallel (data parallelism and the ring scan; the card machine holds
+   one card, so the group has one rank: the multi-rank cases run on the CPU
+   over gloo in tests/test_torch_parallel.py): (a) ``init_data_parallel(1)``
+   over NCCL through a ``FileStore`` in a temporary directory; (b) three
+   gm_tiny b48 fp32 steps (TF32 off; frozen, unfrozen, unfrozen; SGD with
+   momentum, as the JAX package's equivalence check steps, since Adam's first
+   step blows rounding noise up to a full step) with the group active
+   against the same steps without it from the same weights, batch and
+   drop-path masks: losses (1e-4 relative), parameter moves and BN
+   statistics within phase 8's gradient tolerance (moves plus 2 ulps of the
+   parameter), the collectives of each step non-zero, K1/K3/K4/K8 launches
+   per step as phase 22 (b)'s, ms/step of both; then unfrozen steps each
+   timed alone, in the order without the group (5), with it (10), without
+   it again (5, a fresh model after one untimed step), and the medians
+   with their spread; (c) the ring scan
+   (``parallel/ring_scan.py``) on a (2, 32, 1, 16384) fp32 input (stage 1 of
+   a 512x512 image) in the group of one and as 4 shards stacked on the card
+   (``stacked_ring_scan``), forward and reverse, against ``scan_rows`` over
+   the whole L and against the CPU (phase 3's fp32 tolerance), with its a/b
+   gradients against the CPU's; K11 launched exactly 16 times (2 per
+   forward, 2 per backward) and the group's ring all-gathering 4 times (one
+   per forward and per backward), its forward and backward timed as device time;
+   (d) ``predict_volume`` on phase 5's volumes with the group active: no
+   collective, every forward's logits and the label maps bitwise equal to
+   the run without it; (e) the debug guards: built with them off, gm_tiny's
+   b2 forward launches what it launches without them; on, a NaN planted in
+   the first quad block's input raises ``FloatingPointError`` naming
+   ``quad_pergroup.y``; (f) a tiny_0230s encoder saved with a classifier's
+   keys under ``"model"``, loaded by ``convert.vssm_import`` into a fresh
+   model: b2 logits bitwise equal to the source model's; (g) ``torchrun
+   --standalone --nproc_per_node=1 -m ceigm_unet_tpu_torch.cli.train_acdc
+   --distributed --max-steps 2`` on phase 22 (d)'s data (NCCL over
+   ``env://``): exit 0, its history row and ``acdc-last.ckpt``; (h)
+   ``entry.dryrun_multichip(1, "cuda")`` (a spawned NCCL rank) passes and
+   ``dryrun_multichip(2, "cuda")`` raises.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -195,7 +230,8 @@ the batch and dtype of phase 21's and phase 22's paths, and
 ``library_device_ms_b32_fp32`` and ``bound_ms_b32_fp32``, phase 3's times
 per b32 fp32 forward;
 K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
-22 (b)'s path); the last line is
+22 (b)'s path; K11 also with ``launches_ring_scan``, its launches on phase
+23 (c)'s path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -204,6 +240,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2170,6 +2207,31 @@ def step_ms(rec, epochs, steps_per_epoch) -> float:
     return busy * 1e3 / (len(epochs) * steps_per_epoch)
 
 
+def write_acdc(tmp):
+    """ACDC-format data under ``tmp``: ACDC_TRAIN_SLICES train slices of
+    ACDC_SHAPE[1:] (2 steps of batch 32) and one ACDC_SHAPE test volume,
+    with their lists. Returns (data dir, list dir)."""
+    acdc, alists = os.path.join(tmp, "ACDC"), os.path.join(tmp, "alists")
+    for d in ("train", "test"):
+        os.makedirs(os.path.join(acdc, d))
+    os.makedirs(alists)
+    (case,) = blob_cases(1, (ACDC_TRAIN_SLICES,) + ACDC_SHAPE[1:], 4,
+                         SEED + 42)
+    names = [f"patient{i:03d}_frame01_slice_0.npz"
+             for i in range(ACDC_TRAIN_SLICES)]
+    for i, name in enumerate(names):
+        np.savez(os.path.join(acdc, "train", name), img=case["image"][i],
+                 label=case["label"][i].astype(np.float32))
+    (test,) = blob_cases(1, ACDC_SHAPE, 4, SEED + 43)
+    np.savez(os.path.join(acdc, "test", "patient101_frame01.npz"),
+             img=test["image"], label=test["label"].astype(np.float32))
+    with open(os.path.join(alists, "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(alists, "test.txt"), "w") as f:
+        f.write("patient101_frame01.npz\n")
+    return acdc, alists
+
+
 def phase_training_cli(dev, gpu):
     """Phase 22 (see the module docstring). Returns the launches of (b)."""
     import dataclasses
@@ -2394,24 +2456,7 @@ def phase_training_cli(dev, gpu):
         torch.cuda.empty_cache()
 
         # (d) the ACDC command line
-        acdc, alists = os.path.join(tmp, "ACDC"), os.path.join(tmp, "alists")
-        for d in ("train", "test"):
-            os.makedirs(os.path.join(acdc, d))
-        os.makedirs(alists)
-        (case,) = blob_cases(1, (ACDC_TRAIN_SLICES,) + ACDC_SHAPE[1:], 4,
-                             SEED + 42)
-        names = [f"patient{i:03d}_frame01_slice_0.npz"
-                 for i in range(ACDC_TRAIN_SLICES)]
-        for i, name in enumerate(names):
-            np.savez(os.path.join(acdc, "train", name), img=case["image"][i],
-                     label=case["label"][i].astype(np.float32))
-        (test,) = blob_cases(1, ACDC_SHAPE, 4, SEED + 43)
-        np.savez(os.path.join(acdc, "test", "patient101_frame01.npz"),
-                 img=test["image"], label=test["label"].astype(np.float32))
-        with open(os.path.join(alists, "train.txt"), "w") as f:
-            f.write("\n".join(names) + "\n")
-        with open(os.path.join(alists, "test.txt"), "w") as f:
-            f.write("patient101_frame01.npz\n")
+        acdc, alists = write_acdc(tmp)
         logs, ckpts = os.path.join(tmp, "d", "logs"), os.path.join(tmp, "d",
                                                                    "ckpt")
         _build.reset_launch_counts()
@@ -2437,6 +2482,386 @@ def phase_training_cli(dev, gpu):
         del model, step
         torch.cuda.empty_cache()
     return rec["counts"]
+
+
+# --- phase 23: data parallelism and the ring scan ---------------------------
+
+DP_STEPS = (True, False, False)         # 1 frozen, 2 unfrozen
+DP_TIMED = 5                            # unfrozen steps timed after them
+RING_SHAPE = (2, 32, 1, 16384)          # stage 1 of a 512x512 image: L 128^2
+RING_SHARDS = 4
+
+
+def _dp_run(dev, frozen_flags, timed):
+    """``train_entry``'s gm_tiny and b48 batch, fp32, stepped once per flag
+    by SGD (lr 1e-2, momentum 0.9; Adam's first step would blow rounding
+    noise up to a full step) with the drop-path masks of one seeded
+    generator; the launches and ``torch.distributed`` calls of each step
+    counted; then ``timed`` more unfrozen steps, each timed alone. Returns
+    (losses, ms per step of the flags' steps, ms of each timed step,
+    launches and collectives per step, the parameters and BN statistics
+    after the flags' steps, the initial parameters)."""
+    from ceigm_unet_tpu_torch.entry import train_entry
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.parallel import mesh
+    from ceigm_unet_tpu_torch.train.trainstep import (make_sgd,
+                                                      make_train_step,
+                                                      param_groups)
+    model, _, batch = train_entry(dev, torch.float32, TRAIN_BATCH, SEED)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, make_sgd(param_groups(model),
+                                           momentum=0.9), lambda s: 1e-2)
+    batch = mesh.shard_batch(batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses, ms, counts = [], [], []
+    for frozen in frozen_flags:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mesh.watch_collectives() as calls:
+            losses.append(step(batch, freeze_encoder=frozen,
+                               generator=gen)["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append((dict(_build.launch_counts), calls))
+    state = {n: t.detach().clone() for n, t in (
+        *model.named_parameters(),
+        *((n, b) for n, b in model.named_buffers() if "running" in n))}
+    steady = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, generator=gen)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    del model
+    return losses, ms, steady, counts, state, p0
+
+
+def move_tolerance_used(got, want, start) -> float:
+    """The largest share of its tolerance a parameter's move from ``start``
+    uses: the gradient tolerance on the move (rtol GRAD_FLOOR, atol 1e-8 +
+    GRAD_FLOOR * max|move|), plus the 2 ulps of the parameter that
+    rounding the moved value may cost (a move of 1e-5 on a weight near 1
+    holds only ~2 significant digits)."""
+    move = want - start
+    tol = 1e-8 + GRAD_FLOOR * (move.abs().max() + move.abs()) \
+        + 2 * torch.finfo(torch.float32).eps * want.abs()
+    return ((got - want).abs() / tol).max().item()
+
+
+def _logits_of(model, fn):
+    """``fn()``'s result and the logits of every forward of ``model`` in
+    it, on the host."""
+    logits = []
+    hook = model.register_forward_hook(
+        lambda m, i, out: logits.append(out.detach().cpu()))
+    try:
+        return fn(), logits
+    finally:
+        hook.remove()
+
+
+def phase_parallel(dev, gpu):
+    """Phase 23 (see the module docstring). Returns {"scan_rows": K11's
+    launches on the ring scan's path, "dp_ms": the grouped steady steps}."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ceigm_unet_tpu_torch.convert.vssm_import import (
+        load_vssm_encoder)
+    from ceigm_unet_tpu_torch.eval.volume import predict_volume
+    from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
+    from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.parallel import init_data_parallel, mesh
+    from ceigm_unet_tpu_torch.utils.debug import DebugGuards
+    if mesh.active_group() is not None:
+        fail("a process group is active before phase 23")
+    # without the group: the plain steps and the served volumes
+    plain = _dp_run(dev, DP_STEPS, DP_TIMED)
+    serve = build_model(num_classes=9, dtype=torch.bfloat16, device=dev,
+                        seed=SEED)
+    volumes = synthetic_volumes()
+    want_pred, want_logits = _logits_of(serve, lambda: [
+        predict_volume(serve, v, (IMG, IMG), 32) for v in volumes])
+
+    # (a) a group of one over NCCL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    init_data_parallel(1, device="cuda", store_path=os.path.join(tmp, "s"),
+                       timeout_s=120.0)
+    log(f"parallel (a): init_data_parallel(1) over "
+        f"{dist.get_backend()} in {time.perf_counter() - t0:.2f} s, rank "
+        f"{dist.get_rank()} of {dist.get_world_size()}")
+    try:
+        grouped = _phase_parallel_group(
+            dev, gpu, plain, serve, volumes, want_pred, want_logits)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if mesh.active_group() is not None:
+        fail("the process group outlived phase 23")
+
+    # (b) the steady step's time: without the group before it, with it,
+    # without it again (A B A), each step timed alone
+    after = _dp_run(dev, (False,), DP_TIMED)[2]
+    blocks = (("without", plain[2]), ("with", grouped["dp_ms"]),
+              ("without", after))
+    without = plain[2] + after
+    med = lambda t: float(np.median(t))
+    spread = lambda t: f"{med(t):.2f} ({min(t):.2f}-{max(t):.2f})"
+    log(f"parallel (b): steady b{TRAIN_BATCH} fp32 unfrozen SGD steps, "
+        f"each timed alone, in order "
+        + "; ".join(f"{k} the group {' '.join(f'{v:.2f}' for v in t)}"
+                    for k, t in blocks)
+        + f" ms; median (min-max) with the group "
+        f"{spread(grouped['dp_ms'])}, without "
+        f"{spread(without)}; difference "
+        f"{med(grouped['dp_ms']) - med(without):+.2f} ms | {gpu}")
+
+    # (e) the debug guards: off, the same launches; on, a planted NaN
+    x = torch.randn((2, IMG, IMG, 1), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    counts = []
+    for debug in (None, DebugGuards()):
+        model = build_model(num_classes=9, device=dev, seed=SEED,
+                            debug=debug)
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            model(x)
+        counts.append(dict(_build.launch_counts))
+    if counts[0] != counts[1] or counts[0] != PER_FORWARD:
+        fail(f"debug guards off: launches {counts[1]}, without them "
+             f"{counts[0]}")
+    model = build_model(num_classes=9, device=dev, seed=SEED,
+                        debug=DebugGuards(nancheck=True))
+    quad = next(m for m in model.modules() if isinstance(m, QuadGroupSS2D))
+
+    def plant(module, args):
+        y = args[0].clone()
+        y[0, 3, 3, 0] = float("nan")
+        return (y,)
+    hook = quad.register_forward_pre_hook(plant)
+    try:
+        with torch.no_grad():
+            model(x)
+        fail("debug guards on: a NaN in a quad block's input did not raise")
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        hook.remove()
+    if "check_nan_inf[quad_pergroup.y]" not in msg:
+        fail(f"debug guards on: raised {msg!r}")
+    with torch.no_grad():
+        model(x)
+    log(f"parallel (e): debug guards off, gm_tiny b2 forward launches "
+        f"{counts[1]} (without guards {counts[0]}); on, a NaN planted in "
+        f"the first quad block's input raised {msg!r}")
+
+    # (f) the legacy encoder's pretrained loader
+    src = build_legacy_model(num_classes=9, device=dev, seed=SEED)
+    ckpt = {"model": {**src.encoder.state_dict(),
+                      "classifier.norm.weight": torch.ones(768),
+                      "classifier.norm.bias": torch.zeros(768),
+                      "classifier.head.weight": torch.zeros(1000, 768),
+                      "classifier.head.bias": torch.zeros(1000)}}
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_vssm_"),
+                        "vssm1_tiny_0230s.pth")
+    torch.save(ckpt, path)
+    fresh = build_legacy_model(num_classes=9, device=dev, seed=SEED + 1)
+    load_vssm_encoder(fresh, path)
+    fresh.decoder.load_state_dict(src.decoder.state_dict())
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    with torch.no_grad():
+        want, got = src(x), fresh(x)
+    if not torch.equal(got, want):
+        fail(f"vssm loader: logits differ by "
+             f"{(got - want).abs().max().item():.3e}")
+    log(f"parallel (f): a tiny_0230s encoder saved with classifier keys "
+        f"loaded into a fresh model: b2 logits bitwise equal "
+        f"{tuple(got.shape)}")
+    del src, fresh, model, serve
+    torch.cuda.empty_cache()
+
+    # (g) the training command line under torchrun, one rank over NCCL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    try:
+        acdc, alists = write_acdc(tmp)
+        logs, ckpts = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1", "-m",
+               "ceigm_unet_tpu_torch.cli.train_acdc", "--distributed",
+               "--data-dir", acdc, "--list-dir", alists, "--log-dir", logs,
+               "--ckpt-dir", ckpts, "--max-steps", "2", "--device", "cuda"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ,
+                                                   PYTHONPATH=REPO))
+        run_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"torchrun train_acdc --distributed: exit "
+                 f"{run.returncode}: {run.stderr[-2000:]}")
+        with open(os.path.join(logs, "acdc.metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        if (len(rows) != 1 or rows[0]["step"] != 2
+                or not math.isfinite(rows[0]["mean_train_loss"])
+                or not os.path.isfile(os.path.join(ckpts, "acdc-last.ckpt"))):
+            fail(f"torchrun train_acdc --distributed: rows {rows}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"parallel (g): torchrun --standalone --nproc_per_node=1 -m "
+        f"ceigm_unet_tpu_torch.cli.train_acdc --distributed --max-steps 2 "
+        f"(NCCL, {ACDC_TRAIN_SLICES} slices, batch 32): {run_s:.1f} s, row "
+        f"{rows[0]}, acdc-last.ckpt written")
+
+    # (h) the multi-process dry run: one rank on the card; two refused
+    from ceigm_unet_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(1, "cuda")
+    dry_s = time.perf_counter() - t0
+    try:
+        dryrun_multichip(2, "cuda")
+        fail("dryrun_multichip(2) ran on one card")
+    except RuntimeError as e:
+        refused = str(e)
+    log(f"parallel (h): entry.dryrun_multichip(1, 'cuda') passed in "
+        f"{dry_s:.1f} s (a spawned NCCL rank: gm_tiny steps, the sequence-"
+        f"parallel check, one process vs the rank); dryrun_multichip(2) "
+        f"refused: {refused!r}")
+    return grouped
+
+
+def _phase_parallel_group(dev, gpu, plain, serve, volumes, want_pred,
+                          want_logits):
+    """Phase 23 (b)-(d), with the group of one active."""
+    from ceigm_unet_tpu_torch.eval.volume import predict_volume
+    from ceigm_unet_tpu_torch.kernel_ab import device_time
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.ops.selective_scan import scan_rows
+    from ceigm_unet_tpu_torch.parallel import mesh, ring_scan
+
+    # (b) the data-parallel steps against the plain ones
+    losses, ms, dp_ms, counts, state, p0 = _dp_run(dev, DP_STEPS,
+                                                   2 * DP_TIMED)
+    p_losses, p_ms, _, p_counts, p_state, _ = plain
+    for i, (frozen, (kern, coll)) in enumerate(zip(DP_STEPS, counts)):
+        want = expected_counts(int(frozen), int(not frozen), 0)
+        if kern != want or kern != p_counts[i][0]:
+            fail(f"data-parallel step {i}: launches {kern}, expected {want}")
+        if not coll.get("all_reduce"):
+            fail(f"data-parallel step {i}: collectives {coll}")
+        if p_counts[i][1]:
+            fail(f"plain step {i} issued collectives {p_counts[i][1]}")
+        if not abs(losses[i] - p_losses[i]) <= 1e-4 * abs(p_losses[i]):
+            fail(f"data-parallel step {i}: loss {losses[i]} vs plain "
+                 f"{p_losses[i]}")
+    used = {n: move_tolerance_used(t, p_state[n], p0[n]) if n in p0
+            else grad_tolerance_used(t, p_state[n])
+            for n, t in state.items()}
+    worst = max(used, key=used.get)
+    if used[worst] > 1.0:
+        fail(f"data-parallel steps: {worst} uses {used[worst]:.3f} of its "
+             f"tolerance")
+    del state, p0, plain
+    torch.cuda.empty_cache()
+    fmt = lambda t: "/".join(f"{v:.1f}" for v in t)
+    log(f"parallel (b): gm_tiny b{TRAIN_BATCH} fp32 SGD steps (frozen, "
+        f"unfrozen, unfrozen) in a group of one vs without: losses "
+        f"{[round(v, 6) for v in losses]} vs {[round(v, 6) for v in p_losses]}"
+        f"; parameter moves (plus 2 ulps) and BN statistics within the "
+        f"gradient tolerance "
+        f"(nearest: {worst} at {used[worst]:.3f}); per step launches "
+        f"{[c[0] for c in counts]}, collectives {[c[1] for c in counts]}; "
+        f"ms/step {fmt(ms)} vs {fmt(p_ms)} without the group | {gpu}")
+
+    # (c) the ring scan: a group of one, and 4 shards stacked on the card
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.sigmoid(torch.randn(RING_SHAPE, generator=g, device=dev) * 2
+                      + 2)
+    b = torch.randn(RING_SHAPE, generator=g, device=dev)
+    ct = torch.randn(RING_SHAPE, generator=g, device=dev)
+    _build.reset_launch_counts()
+    results = {}
+    with mesh.watch_collectives() as coll:
+        for reverse in (False, True):
+            ag, bg = a.clone().requires_grad_(), b.clone().requires_grad_()
+            h1 = ring_scan.sequence_parallel_scan(ag, bg, reverse=reverse)
+            (h1 * ct).sum().backward()
+            ash = ring_scan.to_shards(a, RING_SHARDS).requires_grad_()
+            bsh = ring_scan.to_shards(b, RING_SHARDS).requires_grad_()
+            h4 = ring_scan.from_shards(ring_scan.stacked_ring_scan(
+                ash, bsh, reverse))
+            (h4 * ct).sum().backward()
+            results[reverse] = (h1.detach(), ag.grad, bg.grad, h4.detach(),
+                                ring_scan.from_shards(ash.grad),
+                                ring_scan.from_shards(bsh.grad))
+    ring_counts = dict(_build.launch_counts)
+    # 2 rings x 2 directions x (2 scans forward + 2 backward)
+    if ring_counts != {"scan_rows": 16}:
+        fail(f"ring scan: launches {ring_counts}, expected scan_rows 16")
+    # the group's ring: one all-gather of the summaries per direction in
+    # the forward and in the backward (a group of one has no neighbours)
+    if coll != {"all_gather": 4}:
+        fail(f"ring scan: collectives {coll}, expected all_gather 4")
+    errs = []
+    for reverse, (h1, da1, db1, h4, da4, db4) in results.items():
+        flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+        with torch.no_grad():
+            whole = flip(scan_rows(flip(a), flip(b)))
+        cpu = [t.cpu() for t in (a, b, ct)]
+        ac, bc = (ring_scan.to_shards(t, RING_SHARDS).requires_grad_()
+                  for t in cpu[:2])
+        hc = ring_scan.from_shards(ring_scan.stacked_ring_scan(ac, bc,
+                                                               reverse))
+        (hc * cpu[2]).sum().backward()
+        for got, want in ((h1, whole), (h4, whole), (h4.cpu(), hc.detach()),
+                          (da4.cpu(), ring_scan.from_shards(ac.grad)),
+                          (db4.cpu(), ring_scan.from_shards(bc.grad)),
+                          (da1.cpu(), ring_scan.from_shards(ac.grad)),
+                          (db1.cpu(), ring_scan.from_shards(bc.grad))):
+            errs.append(compare(got, want, torch.float32))
+    del results
+    L = RING_SHAPE[-1]
+    ash, bsh = (ring_scan.to_shards(t, RING_SHARDS) for t in (a, b))
+    with torch.no_grad():
+        fwd_ms = device_time(lambda: ring_scan.stacked_ring_scan(ash, bsh),
+                             10)
+        whole_ms = device_time(lambda: scan_rows(a, b), 10)
+    ag = ash.clone().requires_grad_()
+    h = ring_scan.stacked_ring_scan(ag, bsh)
+
+    def backward():
+        ag.grad = None
+        h.backward(torch.ones_like(h), retain_graph=True)
+    bwd_ms = device_time(backward, 10)
+    # one local scan's least traffic: a and b read, h written, fp32
+    bound = 3 * 4 * a.numel() / HBM_BPS * 1e3
+    log(f"parallel (c): ring scan {RING_SHAPE} fp32, a group of one and "
+        f"{RING_SHARDS} stacked shards, forward and reverse, vs scan_rows "
+        f"over the whole L and the CPU (values and a/b gradients) max abs "
+        f"err {max(errs):.3e}; launches {ring_counts}, collectives {coll}; "
+        f"{RING_SHARDS}-shard forward {fwd_ms:.4f} ms device, backward "
+        f"{bwd_ms:.4f} ms, one scan_rows over L {L} {whole_ms:.4f} ms, "
+        f"bound of one pass {bound:.4f} ms | {gpu}")
+
+    # (d) serving with the group active: no collective, the same logits
+    with mesh.watch_collectives() as calls:
+        pred, logits = _logits_of(serve, lambda: [
+            predict_volume(serve, v, (IMG, IMG), 32) for v in volumes])
+    if calls:
+        fail(f"serving with a group issued collectives {calls}")
+    if len(logits) != len(want_logits) or not all(
+            torch.equal(x, y) for x, y in zip(logits, want_logits)) \
+            or not all(np.array_equal(x, y) for x, y in zip(pred,
+                                                            want_pred)):
+        fail("serving with a group: logits or labels differ from the run "
+             "without it")
+    log(f"parallel (d): predict_volume on 2 volumes (40, 512, 512) bf16 "
+        f"with the group active: 0 collectives, {len(logits)} forwards' "
+        f"logits and the label maps bitwise equal to the run without it")
+    return dict(scan_rows=ring_counts["scan_rows"], dp_ms=dp_ms)
 
 
 def main() -> int:
@@ -2498,10 +2923,12 @@ def main() -> int:
     test_set = timed("21 test-set inference", phase_test_set, dev, gpu)
     training_cli = timed("22 training from the command line",
                          phase_training_cli, dev, gpu)
+    parallel = timed("23 parallel", phase_parallel, dev, gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
     kernels["scan_rows"]["launches_backward"] = scan_bwd["scan_rows"]
+    kernels["scan_rows"]["launches_ring_scan"] = parallel["scan_rows"]
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
     # op for K11 and K12, the kernel route's trainer for K13 (both modes)
@@ -2520,6 +2947,7 @@ def main() -> int:
         kernels[name]["launches_training_cli"] = training_cli.get(name, 0)
     if any(k["launches"] == 0 or k.get("launches_test_set") == 0
            or k.get("launches_training_cli") == 0
+           or k.get("launches_ring_scan") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

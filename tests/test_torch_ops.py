@@ -522,7 +522,14 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.data.device_aug, "
             "ceigm_unet_tpu_torch.convert.torch_import, "
             "ceigm_unet_tpu_torch.cli.train_synapse, "
-            "ceigm_unet_tpu_torch.cli.train_acdc; "
+            "ceigm_unet_tpu_torch.cli.train_acdc, "
+            "ceigm_unet_tpu_torch.parallel, "
+            "ceigm_unet_tpu_torch.parallel.mesh, "
+            "ceigm_unet_tpu_torch.parallel.ring_scan, "
+            "ceigm_unet_tpu_torch.parallel.dryrun, "
+            "ceigm_unet_tpu_torch.utils, "
+            "ceigm_unet_tpu_torch.utils.debug, "
+            "ceigm_unet_tpu_torch.convert.vssm_import; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
             "from ceigm_unet_tpu_torch.entry import legacy_train_entry; "
             "from ceigm_unet_tpu_torch.ops.grid_sample import "
