@@ -31,6 +31,8 @@ from ceigm_unet_tpu_torch.ops.dwconv import dwconv3x3
 from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
                                                 quad_scan_ln_cat_q8, sscan_dir)
 from ceigm_unet_tpu_torch.ops.selective_scan import selective_scan
+from ceigm_unet_tpu_torch.parallel import sp_context
+from ceigm_unet_tpu_torch.parallel.sp_ss2d import quad_group_ss2d_sp
 
 
 class SS2DGroup(nn.Module):
@@ -79,7 +81,13 @@ class QuadGroupSS2D(nn.Module):
     that require grad raises.
 
     ``debug``: the model's ``utils.debug.DebugGuards`` (None: no guard), at
-    ``quad_pergroup.y`` and ``quad_sandwich.out``."""
+    ``quad_pergroup.y`` and ``quad_sandwich.out``.
+
+    Under ``parallel.sp_context.sp_scan_island``, :meth:`scan_groups` (the
+    forward, and the scan of ``GroupMambaLayer``'s forward) takes x as this
+    rank's H-shard (B, H/n, W, C) and runs
+    ``parallel.sp_ss2d.quad_group_ss2d_sp`` over the island's group (no
+    debug guard there; ``quant_scan`` raises)."""
 
     DIRECTIONS = (1, 2, 3, 4)
     debug = None
@@ -127,6 +135,11 @@ class QuadGroupSS2D(nn.Module):
                   stack([g.out_norm.bias for g in gs])))
 
     def scan_groups(self, x: torch.Tensor) -> torch.Tensor:
+        group = sp_context.active()
+        if group is not None:
+            # x is this rank's H-shard (parallel/sp_context.py); routed here,
+            # where GroupMambaLayer's forward enters the block too
+            return quad_group_ss2d_sp(self, x, group)
         B, H, W, C = x.shape
         L = H * W
         gs = self.groups()

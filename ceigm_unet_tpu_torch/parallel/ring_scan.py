@@ -18,6 +18,10 @@ the forward takes two local scans and the backward two more.
 The backward is the JAX package's adjoint: the scan in the other direction
 of the successor-shifted decay a_{t+1} driven by the cotangent, with the
 one-element global shifts exchanged between neighbouring shards.
+
+The two shard forms also carry the exchanges of the H-sharded QuadGroupSS2D
+(``parallel/sp_ss2d.py``): ``swap_edges`` (each shard's edges to both
+neighbours) and ``all_to_all`` (one block of rows to each shard).
 """
 from __future__ import annotations
 
@@ -44,29 +48,52 @@ class _GroupRing:
     def pick(self, per_shard):
         return per_shard[self.idx]
 
-    def neighbour(self, edge, fill: float, successor: bool):
-        """The edge of shard idx + 1 (``successor``) or idx - 1 on this
-        rank; ``fill`` where there is none."""
-        src = self.idx + 1 if successor else self.idx - 1
-        dst = self.idx - 1 if successor else self.idx + 1
-        got = torch.full_like(edge, fill)
-        ops = []
-        if 0 <= dst < self.n:
-            ops.append(dist.P2POp(dist.isend, edge.contiguous(),
-                                  dist.get_global_rank(self.group, dst),
-                                  self.group))
-        if 0 <= src < self.n:
-            ops.append(dist.P2POp(dist.irecv, got,
-                                  dist.get_global_rank(self.group, src),
-                                  self.group))
+    def _p2p(self, sends, recvs) -> None:
+        """Post each (tensor, shard) send and receive whose shard exists
+        in one ``batch_isend_irecv``, and wait for them."""
+        peer = lambda i: dist.get_global_rank(self.group, i)
+        ops = [dist.P2POp(dist.isend, t.contiguous(), peer(i), self.group)
+               for t, i in sends if 0 <= i < self.n]
+        ops += [dist.P2POp(dist.irecv, t, peer(i), self.group)
+                for t, i in recvs if 0 <= i < self.n]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+
+    def neighbour(self, edge, fill: float, successor: bool):
+        """The edge of shard idx + 1 (``successor``) or idx - 1 on this
+        rank; ``fill`` where there is none."""
+        step = 1 if successor else -1
+        got = torch.full_like(edge, fill)
+        self._p2p([(edge, self.idx - step)], [(got, self.idx + step)])
         return got
+
+    def swap_edges(self, to_pred, to_succ):
+        """(what shard idx - 1 sent to its successor, what shard idx + 1
+        sent to its predecessor), zeros where there is no such shard:
+        ``to_pred`` goes to shard idx - 1 and ``to_succ`` to idx + 1, in
+        one batch."""
+        from_pred = to_succ.new_zeros(to_succ.shape)
+        from_succ = to_pred.new_zeros(to_pred.shape)
+        self._p2p([(to_pred, self.idx - 1), (to_succ, self.idx + 1)],
+                  [(from_pred, self.idx - 1), (from_succ, self.idx + 1)])
+        return from_pred, from_succ
+
+    def all_to_all(self, t):
+        """(n, ...): row j goes to shard j; row i of the result is the row
+        shard i sent to this one (``all_to_all_single``, which splits dim
+        0)."""
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
 
 
 class _StackedRing:
     """n shards stacked on the leading axis: (n, ..., L/n)."""
+
+    def __init__(self, n: int):
+        self.n = n
 
     def gather(self, s):
         return s
@@ -79,6 +106,16 @@ class _StackedRing:
         if successor:
             return torch.cat([edge[1:], pad])
         return torch.cat([pad, edge[:-1]])
+
+    def swap_edges(self, to_pred, to_succ):
+        return (self.neighbour(to_succ, 0.0, successor=False),
+                self.neighbour(to_pred, 0.0, successor=True))
+
+    def all_to_all(self, t):
+        """(n_to, n_from, ...) -> (n_from, n_to, ...): the group form's
+        exchange, with the shard axis (axis 1 on entry) moved to axis 1
+        of the result."""
+        return t.transpose(0, 1)
 
 
 def _exclusive_prefix(summ: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -172,7 +209,7 @@ def stacked_ring_scan(a: torch.Tensor, b: torch.Tensor,
     shard i holding elements [i L/n, (i+1) L/n) of the global scan (see
     :func:`to_shards`). Differentiable."""
     _check(a, b)
-    return _RingScan.apply(a, b, _StackedRing(), reverse)
+    return _RingScan.apply(a, b, _StackedRing(a.shape[0]), reverse)
 
 
 def to_shards(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -188,6 +225,29 @@ def from_shards(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(0, -2).flatten(-2)
 
 
+def selective_scan_ring(u, delta, A, B4, C4, D, delta_bias,
+                        delta_softplus: bool, ring,
+                        reverse: bool) -> torch.Tensor:
+    """:func:`selective_scan_sp`'s arithmetic over ``ring`` (a group's
+    ranks or stacked shards): u, delta (*lead, batch, dim, L_local), B4,
+    C4 (*lead, batch, G, N, L_local), where ``lead`` is () on a group's
+    rank and (n,) for stacked shards. Returns y in fp32."""
+    *lead, batch, dim, L = u.shape
+    G, N = B4.shape[-3], A.shape[-1]
+    rows = lambda t: t.flatten(0, len(lead))
+    uf, _, a, b = _prep(rows(u), rows(delta), A, rows(B4), delta_bias,
+                        delta_softplus)
+    _check(a, b)
+    h = _RingScan.apply(a.unflatten(0, (*lead, batch)),
+                        b.unflatten(0, (*lead, batch)), ring, reverse)
+    y = torch.einsum("...gdnl,...gnl->...gdl",
+                     h.reshape(*lead, batch, G, dim // G, N, L),
+                     C4.float()).reshape(*lead, batch, dim, L)
+    if D is not None:
+        y = y + D.float()[:, None] * uf.view(*lead, batch, dim, L)
+    return y
+
+
 def selective_scan_sp(u, delta, A, B, C, D=None, delta_bias=None,
                       delta_softplus: bool = False,
                       group: Optional[dist.ProcessGroup] = None,
@@ -197,17 +257,14 @@ def selective_scan_sp(u, delta, A, B, C, D=None, delta_bias=None,
     rank's shards along L over ``group``. ``reverse`` scans the global
     sequence back to front. The scan elements and the C contraction are
     PyTorch ops on the shard, differentiable through autograd; the scan is
-    :func:`sequence_parallel_scan`. Returns y in u's dtype."""
-    B4, C4 = _bc4(B), _bc4(C)
-    batch, dim, L = u.shape
-    G, N = B4.shape[1], A.shape[-1]
-    uf, _, a, b = _prep(u, delta, A, B4, delta_bias, delta_softplus)
-    h = sequence_parallel_scan(a, b, group, reverse)      # (batch, dim, N, L)
-    y = torch.einsum("bgdnl,bgnl->bgdl", h.reshape(batch, G, dim // G, N, L),
-                     C4.float()).reshape(batch, dim, L)
-    if D is not None:
-        y = y + D.float()[None, :, None] * uf
-    return y.to(u.dtype)
+    :func:`sequence_parallel_scan`'s. Returns y in u's dtype."""
+    group = group or mesh.active_group()
+    if group is None:
+        raise RuntimeError("selective_scan_sp: no process group (see "
+                           "parallel.init_data_parallel)")
+    return selective_scan_ring(u, delta, A, _bc4(B), _bc4(C), D, delta_bias,
+                               delta_softplus, _GroupRing(group),
+                               reverse).to(u.dtype)
 
 
 def selective_scan_sp_check(device=None) -> None:

@@ -218,6 +218,25 @@ exits non-zero without its last line:
    ``env://``): exit 0, its history row and ``acdc-last.ckpt``; (h)
    ``entry.dryrun_multichip(1, "cuda")`` (a spawned NCCL rank) passes and
    ``dryrun_multichip(2, "cuda")`` raises.
+24. sp block (the H-sharded QuadGroupSS2D, ``parallel/sp_ss2d.py``; the
+   multi-rank group form runs on the CPU over gloo in
+   tests/test_torch_sp.py): (a) at gm_tiny's four QuadGroupSS2D shapes of a
+   512x512 b8 forward, (H = W, C) = (128, 64), (64, 128), (32, 348), (16,
+   448), fp32 (TF32 off), the block on 4 H-shards stacked on the card
+   (``quad_group_ss2d_stacked``) against the unsharded block on the card (K1
+   forward, K8 backward): the output at rtol 2e-4, atol 2e-4 * max|out|,
+   the input and every parameter gradient of sum(out * ct) at phase 8's
+   gradient tolerance; the 128x128 shape also with ``dwconv="kernel"``
+   (K13 and its flip mode on the haloed rows); K11 launched exactly 16
+   times per block (2 per direction forward, 2 backward), no K1 or K8
+   launch and no collective; (b) in a group of one over NCCL, the block
+   under ``sp_scan_island`` equals the 1-shard stacked block bitwise, with
+   its collectives per forward and backward counted; (c) the 128x128 block
+   in bf16 within 0.05 * max|fp32 out| of fp32; (d) ms per block forward
+   and per forward + backward, stacked against unsharded, per shape: the
+   device's time with the calls queued behind ``kernel_ab.device_time``'s
+   spin kernel, the device work summed by torch.profiler, and the host's
+   time to issue one call.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -231,7 +250,8 @@ the batch and dtype of phase 21's and phase 22's paths, and
 per b32 fp32 forward;
 K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
 22 (b)'s path; K11 also with ``launches_ring_scan``, its launches on phase
-23 (c)'s path); the last line is
+23 (c)'s path; K11 and K13 (both modes) also with ``launches_sp_block``,
+their launches on phase 24 (a)'s path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2864,6 +2884,184 @@ def _phase_parallel_group(dev, gpu, plain, serve, volumes, want_pred,
     return dict(scan_rows=ring_counts["scan_rows"], dp_ms=dp_ms)
 
 
+# --- phase 24: the H-sharded QuadGroupSS2D (the scan island) ---------------
+
+SP_BATCH = 8
+# gm_tiny's QuadGroupSS2D (H = W, C) in a 512x512 forward; the decoder's
+# fronts repeat the first three
+SP_SHAPES = ((128, 64), (64, 128), (32, 348), (16, 448))
+SP_SHARDS = 4
+SP_TOL = (2e-4, 2e-4)                   # tests/test_sp_ss2d.py's forward
+SP_TIMED = 5
+
+
+def _sp_block(C, dev, dwconv="library"):
+    """A gm_tiny QuadGroupSS2D of width C with the model's seeded init."""
+    from ceigm_unet_tpu_torch.models.msvm_unet import init_weights
+    from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+    block = QuadGroupSS2D(C, dwconv=dwconv)
+    init_weights(block, torch.Generator().manual_seed(SEED))
+    return block.to(dev)
+
+
+def _sp_shards(t):
+    """(B, H, W, C) -> (SP_SHARDS, B, H/SP_SHARDS, W, C)."""
+    return t.unflatten(1, (SP_SHARDS, t.shape[1] // SP_SHARDS)).movedim(1, 0)
+
+
+def _sp_image(t):
+    return t.movedim(0, 1).flatten(1, 2)
+
+
+def _fwd_bwd(fn, x, ct):
+    """fn(x)'s output and the gradient of sum(fn(x) * ct) in x; the
+    parameters fn reads accumulate theirs in ``.grad``."""
+    x = x.detach().requires_grad_()
+    y = fn(x)
+    (y * ct).sum().backward()
+    return y.detach(), x.grad
+
+
+def _sp_times(fn):
+    """ms per call of ``fn``: the device's time with the calls queued
+    behind ``kernel_ab.device_time``'s spin kernel, the device work summed
+    by a CUDA-only torch.profiler, and the host's time to issue one call
+    (the spin covers the issue of its SP_TIMED calls only when they take
+    less than it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceigm_unet_tpu_torch.kernel_ab import device_time
+    spin = device_time(fn, SP_TIMED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SP_TIMED):
+            fn()
+        torch.cuda.synchronize()
+    return spin, device_seconds(prof) * 1e3 / SP_TIMED, issue
+
+
+def phase_sp_block(dev, gpu):
+    """Phase 24 (see the module docstring). Returns the launches of each
+    kernel on (a)'s path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.parallel import init_data_parallel, mesh
+    from ceigm_unet_tpu_torch.parallel.sp_context import sp_scan_island
+    from ceigm_unet_tpu_torch.parallel.sp_ss2d import quad_group_ss2d_stacked
+    stacked = lambda blk: lambda x: _sp_image(quad_group_ss2d_stacked(
+        blk, _sp_shards(x)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    path = {}
+    fp32_128 = None
+    for H, C in SP_SHAPES:
+        first = H == SP_SHAPES[0][0]
+        for dwconv in ("library", "kernel") if first else ("library",):
+            block = _sp_block(C, dev, dwconv)
+            x = torch.randn((SP_BATCH, H, H, C), generator=gen,
+                            device=dev) * 0.5
+            ct = torch.randn(x.shape, generator=gen, device=dev)
+            # (a) the island's path: 4 stacked shards, forward + backward
+            block.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with mesh.watch_collectives() as coll:
+                y, gx = _fwd_bwd(stacked(block), x, ct)
+            torch.cuda.synchronize()
+            counts = dict(_build.launch_counts)
+            want_counts = {"scan_rows": 16}
+            if dwconv == "kernel":
+                want_counts.update(dwconv3x3=1, dwconv3x3_flip=1)
+            if counts != want_counts or coll:
+                fail(f"sp block {H}x{H} C{C} {dwconv}: launches {counts}, "
+                     f"expected {want_counts}; collectives {coll}")
+            for k, v in counts.items():
+                path[k] = path.get(k, 0) + v
+            gp = {k: p.grad for k, p in block.named_parameters()}
+            # against the unsharded block on the card (K1, K8)
+            block.zero_grad(set_to_none=True)
+            _build.reset_launch_counts()
+            want, want_gx = _fwd_bwd(block, x, ct)
+            ref_counts = dict(_build.launch_counts)
+            if ref_counts.get("quad_scan_ln") != 1 \
+                    or ref_counts.get("scan2d") != 2:
+                fail(f"sp block {H}x{H} C{C}: the unsharded block launched "
+                     f"{ref_counts}")
+            err = compare(y, want, SP_TOL)
+            used = {"x": grad_tolerance_used(gx, want_gx)}
+            used.update({k: grad_tolerance_used(gp[k], p.grad)
+                         for k, p in block.named_parameters()})
+            worst = max(used, key=used.get)
+            if used[worst] > 1.0:
+                fail(f"sp block {H}x{H} C{C} {dwconv}: gradient {worst} "
+                     f"uses {used[worst]:.3f} of its tolerance")
+            if first and dwconv == "library":
+                fp32_128 = (block, x, y)
+            # (d) times, stacked against unsharded
+            with torch.no_grad():
+                fwd = [_sp_times(lambda: f(x))
+                       for f in (stacked(block), block)]
+            both = [_sp_times(lambda: _fwd_bwd(f, x, ct))
+                    for f in (stacked(block), block)]
+            fmt = lambda t: (f"{t[0][0]:.4f} vs {t[1][0]:.4f} behind the "
+                             f"spin, {t[0][1]:.4f} vs {t[1][1]:.4f} of "
+                             f"device work, {t[0][2]:.3f} vs {t[1][2]:.3f} "
+                             f"to issue")
+            log(f"sp block (a, d): {H}x{H} C{C} b{SP_BATCH} fp32 "
+                f"{dwconv} conv, {SP_SHARDS} stacked shards vs unsharded: "
+                f"out max abs err {err:.3e} (max|out| "
+                f"{want.abs().max().item():.3e}); gradients within phase "
+                f"8's tolerance (nearest {worst} at {used[worst]:.2e}); "
+                f"launches per block fwd+bwd {counts} (unsharded "
+                f"{ref_counts}), collectives 0; ms per block forward "
+                f"{fmt(fwd)}; forward+backward {fmt(both)} | {gpu}")
+            del block, x, ct, y, gx, gp, want, want_gx
+
+    # (b) a group of one over NCCL: the module under the context
+    block, x, y32 = fp32_128
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_")
+    init_data_parallel(1, device="cuda", store_path=os.path.join(tmp, "s"),
+                       timeout_s=120.0)
+    try:
+        with torch.no_grad():
+            with sp_scan_island():
+                got = block(x)
+            want = quad_group_ss2d_stacked(block, x[None])[0]
+        with sp_scan_island(), mesh.watch_collectives() as coll:
+            _fwd_bwd(block, x, torch.ones_like(x))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not torch.equal(got, want):
+        fail(f"sp block (b): the module in a group of one differs from one "
+             f"stacked shard by {(got - want).abs().max().item():.3e}")
+    if coll != {"all_gather": 8, "all_to_all_single": 8}:
+        fail(f"sp block (b): collectives per block {coll}")
+    shape = f"{x.shape[1]}x{x.shape[2]} C{x.shape[3]} b{x.shape[0]}"
+    log(f"sp block (b): {shape} under sp_scan_island in a "
+        f"group of one over NCCL: bitwise the 1-shard stacked block; "
+        f"collectives per block forward+backward {coll}")
+
+    # (c) bf16 against fp32
+    with torch.no_grad():
+        y16 = _sp_image(quad_group_ss2d_stacked(
+            block, _sp_shards(x.bfloat16())))
+    err = check_bf16(y16, y32, "sp block (c) bf16")
+    log(f"sp block (c): {shape} bf16 on {SP_SHARDS} stacked "
+        f"shards vs fp32: max abs err {err:.3e}, max|fp32 out| "
+        f"{y32.abs().max().item():.3e}")
+    del block, x, y32, y16, got, want
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -2924,11 +3122,14 @@ def main() -> int:
     training_cli = timed("22 training from the command line",
                          phase_training_cli, dev, gpu)
     parallel = timed("23 parallel", phase_parallel, dev, gpu)
+    sp_block = timed("24 sp block", phase_sp_block, dev, gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
     kernels["scan_rows"]["launches_backward"] = scan_bwd["scan_rows"]
     kernels["scan_rows"]["launches_ring_scan"] = parallel["scan_rows"]
+    for name in ("scan_rows", "dwconv3x3", "dwconv3x3_flip"):
+        kernels[name]["launches_sp_block"] = sp_block.get(name, 0)
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
     # op for K11 and K12, the kernel route's trainer for K13 (both modes)
@@ -2948,6 +3149,7 @@ def main() -> int:
     if any(k["launches"] == 0 or k.get("launches_test_set") == 0
            or k.get("launches_training_cli") == 0
            or k.get("launches_ring_scan") == 0
+           or k.get("launches_sp_block") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

@@ -527,6 +527,8 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.parallel.mesh, "
             "ceigm_unet_tpu_torch.parallel.ring_scan, "
             "ceigm_unet_tpu_torch.parallel.dryrun, "
+            "ceigm_unet_tpu_torch.parallel.sp_context, "
+            "ceigm_unet_tpu_torch.parallel.sp_ss2d, "
             "ceigm_unet_tpu_torch.utils, "
             "ceigm_unet_tpu_torch.utils.debug, "
             "ceigm_unet_tpu_torch.convert.vssm_import; "

@@ -142,3 +142,72 @@ def ring_cases(scan, grad, sp, sp_grad):
     (y.float() ** 2).sum().backward()
     out["sp_grad"] = [x.grad.numpy() for x in xs]
     return out
+
+
+def sp_cases(cases):
+    """This rank's results of the H-sharded QuadGroupSS2D over the group,
+    for each case (C -> the block's state dict, x, ct; global (B, H, W, C)
+    arrays, H sharded in rank order):
+
+    - ``out``, ``gx``, ``gp``: the functional block's output shard and the
+      gradients of sum(out * ct) in this rank's x shard and in every
+      parameter (this rank's share);
+    - ``calls``: the ``torch.distributed`` calls of that forward and
+      backward; ``gathered``: the element count of each all-gather's input
+      in it (a wrapper local to this task);
+    - ``module``: the module under ``sp_scan_island`` (no grad), and
+      ``functional`` the functional call on the same shard;
+    - ``kernel``: the output shard with ``dwconv="kernel"``;
+    - ``raises``: what ``quant_scan=True`` and a W that the ranks do not
+      divide raise."""
+    import torch.distributed as dist
+
+    from ceigm_unet_tpu_torch.convert import jax_import
+    from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+    from ceigm_unet_tpu_torch.parallel.sp_context import sp_scan_island
+    from ceigm_unet_tpu_torch.parallel.sp_ss2d import quad_group_ss2d_sp
+    rank, n = mesh.rank_and_size()
+
+    def part(a):
+        rows = a.shape[1] // n
+        return torch.from_numpy(a[:, rank * rows:(rank + 1) * rows].copy())
+    out = {}
+    for C, (sd, x, ct) in cases.items():
+        block = QuadGroupSS2D(C)
+        jax_import.load_numpy_state_dict(block, sd)
+        xs = part(x).requires_grad_()
+        gathered = []
+        all_gather = dist.all_gather
+
+        def counted(parts, t, *a, **kw):
+            gathered.append(t.numel())
+            return all_gather(parts, t, *a, **kw)
+        dist.all_gather = counted
+        try:
+            with mesh.watch_collectives() as calls:
+                y = quad_group_ss2d_sp(block, xs)
+                (y * part(ct)).sum().backward()
+        finally:
+            dist.all_gather = all_gather
+        r = dict(out=y.detach().numpy(), gx=xs.grad.numpy(),
+                 gp={k: p.grad.numpy() for k, p in block.named_parameters()},
+                 calls=calls, gathered=gathered)
+        with torch.no_grad():
+            with sp_scan_island():
+                r["module"] = block(xs).numpy()
+            r["functional"] = quad_group_ss2d_sp(block, xs).numpy()
+            kernel = QuadGroupSS2D(C, dwconv="kernel")
+            jax_import.load_numpy_state_dict(kernel, sd)
+            r["kernel"] = quad_group_ss2d_sp(kernel, xs).numpy()
+            raises = []
+            for blk, xr in ((QuadGroupSS2D(C, quant_scan=True), xs),
+                            (block, torch.zeros(2, 4, 8 * n + 1, C))):
+                try:
+                    with sp_scan_island():
+                        blk(xr)
+                    raises.append(None)
+                except ValueError as e:
+                    raises.append(str(e))
+            r["raises"] = raises
+        out[C] = r
+    return out
