@@ -24,6 +24,7 @@ from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
 from ceigm_unet_tpu_torch.ops.grid_sample import (
     dysample_grid_sample, dysample_grid_sample_pergroup)
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_fold, lgag_gate
+from ceigm_unet_tpu_torch.parallel import sp_context, sp_ops
 
 
 def _bn_dict(bn: BatchNorm2d):
@@ -59,6 +60,12 @@ class LGAG(nn.Module):
 
     def forward(self, g, x):
         if not self.training:
+            ring = sp_context.ring()
+            if ring is not None:
+                # the k 1/3/5 convs on g reach 2 rows; x is read pointwise
+                return sp_ops.rows_with_halo(
+                    lambda gh, xh: lgag_gate(gh, xh, *self.folded()), g,
+                    ring, 2, pointwise=(x,))
             return lgag_gate(g, x, *self.folded())
         gs = self.bn.forward_fp32(self.W_g_1(g) + self.W_g_3(g)
                                   + self.W_g_5(g))
@@ -88,9 +95,14 @@ class MultiScaleCAB(nn.Module):
         return factor
 
     def forward(self, x):
-        avg = x.mean(dim=(1, 2), keepdim=True)
-        mx = x.amax(dim=(1, 2), keepdim=True)
-        mn = x.amin(dim=(1, 2), keepdim=True)
+        ring = sp_context.ring()
+        if ring is None:
+            avg = x.mean(dim=(1, 2), keepdim=True)
+            mx = x.amax(dim=(1, 2), keepdim=True)
+            mn = x.amin(dim=(1, 2), keepdim=True)
+        else:
+            avg, mx, mn = [f(x, ring)[:, None, None] for f in (
+                sp_ops.mean_hw, sp_ops.amax_hw, sp_ops.amin_hw)]
         comb = torch.cat([self.conv1(avg), self.conv2_2(self.conv2_1(mx)),
                           self.conv3(mn)], dim=-1)
         return torch.sigmoid(self.fc(comb) + x)
@@ -200,12 +212,16 @@ class DySample(nn.Module):
         off = self.offset(x) / g + self.init_pos.to(x.dtype)
         off = off.reshape(B, H, W, 2, g, s, s)
         ar = lambda n: torch.arange(n, dtype=torch.float32, device=x.device)
+        ring = sp_context.ring()
+        Hg = H if ring is None else H * ring.n          # the image's H
         bw = ar(W) + torch.sin(math.pi * (ar(W) + 1) / W)
-        bh = ar(H) + torch.sin(math.pi * (ar(H) + 1) / H)
+        bh = ar(Hg) + torch.sin(math.pi * (ar(Hg) + 1) / Hg)
+        # each image's rows of the base grid: the shard's rows of the image's
+        rows = bh[None] if ring is None else sp_ops.shard_rows(bh, ring, B)
         cx = 2.0 * (bw[None, None, :, None, None, None] + off[..., 0, :, :, :]) \
             / W - 1.0
-        cy = 2.0 * (bh[None, :, None, None, None, None] + off[..., 1, :, :, :]) \
-            / H - 1.0
+        cy = 2.0 * (rows[:, :, None, None, None, None] + off[..., 1, :, :, :]) \
+            / Hg - 1.0
         # pixel-shuffle the (j, i) subpixels: (B, H, W, g, s, s) ->
         # (B, H*s, W*s, g)
         shuffle = lambda c: c.permute(0, 1, 4, 2, 5, 3).reshape(
@@ -213,6 +229,10 @@ class DySample(nn.Module):
         grid = torch.stack([shuffle(cx), shuffle(cy)], dim=-1)
         sample = (dysample_grid_sample if self.grouped
                   else dysample_grid_sample_pergroup)
+        if ring is not None:
+            # the offsets are unbounded: a sample may read any row, so the
+            # source is gathered whole over H
+            return self.eu(sp_ops.sample_rows(sample, x, grid, ring))
         return self.eu(sample(x, grid))
 
 

@@ -16,6 +16,7 @@ from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                                 CustomFfn, DropPath,
                                                 LayerNorm, Linear, Pvt2Ffn)
 from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+from ceigm_unet_tpu_torch.parallel import sp_context, sp_ops
 
 
 class GroupMambaLayer(QuadGroupSS2D):
@@ -36,7 +37,10 @@ class GroupMambaLayer(QuadGroupSS2D):
 
     def forward(self, x):
         xn = self.norm(x)
-        zc = self.fc2(torch.relu(self.fc1(xn.mean(dim=(1, 2)))))
+        ring = sp_context.ring()
+        pooled = (xn.mean(dim=(1, 2)) if ring is None
+                  else sp_ops.mean_hw(xn, ring))
+        zc = self.fc2(torch.relu(self.fc1(pooled)))
         affinity = torch.sigmoid(zc)[:, None, None, :]
         y = self.scan_groups(xn) * self.skip_scale.to(x.dtype) * xn
         return self.proj(self.norm(y * affinity))
@@ -93,6 +97,20 @@ class DownSample(nn.Module):
         return self.norm(self.proj(x))
 
 
+def check_stages(H: int, W: int, n: int, stages: int) -> None:
+    """Raise unless n H-shards divide every stage's map of an H x W input
+    (strides 4, 8, 16, 32): each stage's rows are cut into n shards and
+    the quad blocks re-shard its columns n ways too. At 512^2 (stages 128
+    to 16) n in {2, 4, 8} does; at 224^2 (stage 4 is 7x7) only n = 7."""
+    for i in range(stages):
+        s = 4 << i
+        h, w = H / s, W / s
+        if H % s or W % s or (H // s) % n or (W // s) % n:
+            raise ValueError(f"H-sharded model: {n} shards do not divide "
+                             f"stage {i + 1}'s map H {h:g} x W {w:g} (input "
+                             f"{H}x{W})")
+
+
 GROUPMAMBA_CONFIGS = {
     # test-only miniature; not a reference config
     "gm_test": dict(stem_hidden_dim=8, embed_dims=(16, 32, 48, 64),
@@ -130,6 +148,10 @@ class GroupMamba(nn.Module):
             self.add_module(f"norm{i + 1}", LayerNorm(dim, eps=1e-6))
 
     def forward(self, x, generator=None):
+        ring = sp_context.ring()
+        if ring is not None:
+            check_stages(x.shape[1] * ring.n, x.shape[2], ring.n,
+                         len(self.depths))
         feats = []
         for i in range(len(self.depths)):
             x = getattr(self, f"patch_embed{i + 1}")(x)

@@ -16,7 +16,7 @@ from torch import nn
 
 from ceigm_unet_tpu_torch.ops.activations import gelu
 from ceigm_unet_tpu_torch.ops.ffn import custom_ffn_fused, inception_composite
-from ceigm_unet_tpu_torch.parallel import mesh
+from ceigm_unet_tpu_torch.parallel import mesh, sp_context, sp_ops
 
 
 class Linear(nn.Linear):
@@ -26,10 +26,17 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d on NHWC tensors (cuDNN sees a channels_last NCHW view)."""
+    """nn.Conv2d on NHWC tensors (cuDNN sees a channels_last NCHW view).
+    Under the H-sharded context (``parallel/sp_context.py``) a conv that
+    reads across rows takes its rows from a halo (``sp_ops.conv2d``)."""
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
+        ring = sp_context.ring()
+        if ring is not None and self.kernel_size[0] > 1:
+            return sp_ops.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+                                 self.padding, self.dilation, self.groups,
+                                 ring)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
                      self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
@@ -182,6 +189,15 @@ class CustomFfn(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
+        ring = sp_context.ring()
+        if ring is not None:
+            # a border q is gelu(dwb) + ..., not zero: the op runs on 4 rows
+            # of x each side (1 for the dw3, 3 for the 7x7) with the rows
+            # beyond the image cut, so its own padding stands there
+            return sp_ops.rows_with_halo(self._fused, x, ring, 4, cut=True)
+        return self._fused(x)
+
+    def _fused(self, x):
         B, H, W, C = x.shape
         inck, incb = self.custom.composite(torch.float32)
         y = custom_ffn_fused(
@@ -202,7 +218,11 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
 
 def bilinear_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Bilinear upsample with half-pixel centres (jax.image.resize
-    'bilinear' == F.interpolate(align_corners=False) when upsampling)."""
+    'bilinear' == F.interpolate(align_corners=False) when upsampling); on
+    the image's rows under the H-sharded context."""
+    ring = sp_context.ring()
+    if ring is not None:
+        return sp_ops.upsample_rows(x, ring, scale)
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1)

@@ -32,7 +32,8 @@ from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
                                                 quad_scan_ln_cat_q8, sscan_dir)
 from ceigm_unet_tpu_torch.ops.selective_scan import selective_scan
 from ceigm_unet_tpu_torch.parallel import sp_context
-from ceigm_unet_tpu_torch.parallel.sp_ss2d import quad_group_ss2d_sp
+from ceigm_unet_tpu_torch.parallel.sp_ss2d import (quad_group_ss2d_sp,
+                                                   quad_group_ss2d_stacked)
 
 
 class SS2DGroup(nn.Module):
@@ -86,8 +87,10 @@ class QuadGroupSS2D(nn.Module):
     Under ``parallel.sp_context.sp_scan_island``, :meth:`scan_groups` (the
     forward, and the scan of ``GroupMambaLayer``'s forward) takes x as this
     rank's H-shard (B, H/n, W, C) and runs
-    ``parallel.sp_ss2d.quad_group_ss2d_sp`` over the island's group (no
-    debug guard there; ``quant_scan`` raises)."""
+    ``parallel.sp_ss2d.quad_group_ss2d_sp`` over the island's group; under
+    ``sp_stacked(n)`` x is n shards stacked in the batch, (n*B, H/n, W, C),
+    and it runs ``quad_group_ss2d_stacked`` (no debug guard there;
+    ``quant_scan`` raises)."""
 
     DIRECTIONS = (1, 2, 3, 4)
     debug = None
@@ -135,11 +138,14 @@ class QuadGroupSS2D(nn.Module):
                   stack([g.out_norm.bias for g in gs])))
 
     def scan_groups(self, x: torch.Tensor) -> torch.Tensor:
-        group = sp_context.active()
-        if group is not None:
-            # x is this rank's H-shard (parallel/sp_context.py); routed here,
-            # where GroupMambaLayer's forward enters the block too
-            return quad_group_ss2d_sp(self, x, group)
+        ring = sp_context.ring()
+        if ring is not None:
+            # x is this rank's H-shard, or the shards stacked in the batch
+            # (parallel/sp_context.py); routed here, where GroupMambaLayer's
+            # forward enters the block too
+            if sp_context.active() is not None:
+                return quad_group_ss2d_sp(self, x, ring.group)
+            return ring.unlead(quad_group_ss2d_stacked(self, ring.lead(x)))
         B, H, W, C = x.shape
         L = H * W
         gs = self.groups()

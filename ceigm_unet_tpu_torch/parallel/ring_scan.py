@@ -19,9 +19,16 @@ The backward is the JAX package's adjoint: the scan in the other direction
 of the successor-shifted decay a_{t+1} driven by the cotangent, with the
 one-element global shifts exchanged between neighbouring shards.
 
-The two shard forms also carry the exchanges of the H-sharded QuadGroupSS2D
-(``parallel/sp_ss2d.py``): ``swap_edges`` (each shard's edges to both
-neighbours) and ``all_to_all`` (one block of rows to each shard).
+The two shard forms also carry the exchanges of the H-sharded model
+(``parallel/sp_ops.py``, ``parallel/sp_ss2d.py``): ``swap_edges`` (rows to
+the shards 1, 2, ... before and after), ``all_to_all`` (one block of rows to
+each shard), ``sum_shards`` (a sum over the shards, on every shard),
+``gather`` (every shard's tensor on every shard; on a group its adjoint is
+``reduce_scatter``) and ``spread`` (a value reduced from it, on each
+shard). A
+ring's ``lead`` views the model's batch axis as the shards' leading axes:
+() on a group's rank, (n,) for stacked shards, which ride in the batch axis
+as (n*B, ...).
 """
 from __future__ import annotations
 
@@ -69,15 +76,43 @@ class _GroupRing:
         return got
 
     def swap_edges(self, to_pred, to_succ):
-        """(what shard idx - 1 sent to its successor, what shard idx + 1
-        sent to its predecessor), zeros where there is no such shard:
-        ``to_pred`` goes to shard idx - 1 and ``to_succ`` to idx + 1, in
-        one batch."""
-        from_pred = to_succ.new_zeros(to_succ.shape)
-        from_succ = to_pred.new_zeros(to_pred.shape)
-        self._p2p([(to_pred, self.idx - 1), (to_succ, self.idx + 1)],
-                  [(from_pred, self.idx - 1), (from_succ, self.idx + 1)])
+        """Rows to the shards h = 1, 2, ... away, in one batch:
+        ``to_pred[h - 1]`` goes to shard idx - h and ``to_succ[h - 1]`` to
+        idx + h. Returns (from_pred, from_succ): ``from_pred[h - 1]`` is
+        what shard idx - h sent in its ``to_succ[h - 1]``, ``from_succ[h -
+        1]`` what shard idx + h sent in its ``to_pred[h - 1]``; zeros where
+        there is no such shard."""
+        from_pred = [t.new_zeros(t.shape) for t in to_succ]
+        from_succ = [t.new_zeros(t.shape) for t in to_pred]
+        hops = lambda ts, step: [(t, self.idx + step * h)
+                                 for h, t in enumerate(ts, 1)]
+        self._p2p(hops(to_pred, -1) + hops(to_succ, 1),
+                  hops(from_pred, -1) + hops(from_succ, 1))
         return from_pred, from_succ
+
+    def sum_shards(self, t):
+        """The sum of every shard's t, on this rank (outside autograd)."""
+        t = t.clone()
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def spread(self, t):
+        """A value every shard computed alike, as this rank holds it."""
+        return t
+
+    def reduce_scatter(self, g):
+        """The adjoint of :meth:`gather`: g (n, ...) on every rank -> the
+        sum over the ranks of their g[idx]."""
+        out = torch.empty_like(g[0])
+        dist.reduce_scatter(out, [p.contiguous() for p in g.unbind(0)],
+                            group=self.group)
+        return out
+
+    def lead(self, t):
+        return t
+
+    def unlead(self, t):
+        return t
 
     def all_to_all(self, t):
         """(n, ...): row j goes to shard j; row i of the result is the row
@@ -108,8 +143,29 @@ class _StackedRing:
         return torch.cat([pad, edge[:-1]])
 
     def swap_edges(self, to_pred, to_succ):
-        return (self.neighbour(to_succ, 0.0, successor=False),
-                self.neighbour(to_pred, 0.0, successor=True))
+        def shift(t, h, down):
+            if h >= self.n:
+                return torch.zeros_like(t)
+            pad = torch.zeros_like(t[:h])
+            return torch.cat([pad, t[:-h]]) if down else torch.cat([t[h:],
+                                                                    pad])
+        return ([shift(t, h, True) for h, t in enumerate(to_succ, 1)],
+                [shift(t, h, False) for h, t in enumerate(to_pred, 1)])
+
+    def sum_shards(self, t):
+        return t.sum(0, keepdim=True).expand_as(t)
+
+    def spread(self, t):
+        """(...) -> (n, ...): a value every shard computed alike, on each
+        shard."""
+        return t.expand(self.n, *t.shape)
+
+    def lead(self, t):
+        """(n*B, ...) -> (n, B, ...)."""
+        return t.unflatten(0, (self.n, -1))
+
+    def unlead(self, t):
+        return t.flatten(0, 1)
 
     def all_to_all(self, t):
         """(n_to, n_from, ...) -> (n_from, n_to, ...): the group form's

@@ -44,28 +44,7 @@ from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.parallel.ring_scan import (_GroupRing,
                                                      _StackedRing,
                                                      selective_scan_ring)
-
-
-class _RowHalo(torch.autograd.Function):
-    """(..., Hl, W, C) -> (..., Hl + 2, W, C): the shard with the last row
-    of the shard before it on top and the first row of the shard after it
-    below, zeros at the image's edges. The backward sends the halo rows'
-    gradients back and adds them to the sender's edge rows."""
-
-    @staticmethod
-    def forward(ctx, x, ring):
-        ctx.ring = ring
-        top, bottom = ring.swap_edges(x[..., :1, :, :], x[..., -1:, :, :])
-        return torch.cat([top, x, bottom], dim=-3)
-
-    @staticmethod
-    def backward(ctx, g):
-        from_pred, from_succ = ctx.ring.swap_edges(g[..., :1, :, :],
-                                                   g[..., -1:, :, :])
-        gx = g[..., 1:-1, :, :].clone()
-        gx[..., :1, :, :] += from_pred
-        gx[..., -1:, :, :] += from_succ
-        return gx, None
+from ceigm_unet_tpu_torch.parallel.sp_ops import row_halo
 
 
 class _AllToAll(torch.autograd.Function):
@@ -107,7 +86,7 @@ def _island(block, x, ring):
     fw = block.fused_weights(x.dtype)
     xz = x.reshape(-1, C) @ fw["w_xz"]                     # (M, 2Din)
     z = F.silu(xz[:, Din:])
-    xh = _RowHalo.apply(xz[:, :Din].view(*lead, B, Hl, W, Din), ring)
+    xh = row_halo(xz[:, :Din].view(*lead, B, Hl, W, Din), ring, 1, 1)
     xh = xh.reshape(-1, Hl + 2, W, Din)
     if block.dwconv == "kernel":
         xc = dwconv3x3(xh, fw["conv_w"], fw["conv_b"])[:, 1:-1]

@@ -237,6 +237,22 @@ exits non-zero without its last line:
    device's time with the calls queued behind ``kernel_ab.device_time``'s
    spin kernel, the device work summed by torch.profiler, and the host's
    time to issue one call.
+25. sp model (the H-sharded MSVM-UNet, ``parallel/sp_model.py`` and the
+   exchanges of ``parallel/sp_ops.py``; the multi-rank group form runs on
+   the CPU over gloo in tests/test_torch_sp_model.py): gm_tiny (9 classes,
+   seeded init, eval) at 512x512, fp32 (TF32 off), on 4 H-shards stacked
+   on the card (``sp_forward_stacked``) against the unsharded model on the
+   card: (a) the b8 forward's logits at phase 4's tolerance, with its
+   launches (K11 8 per quad block, K3's GEMM and stencil per CustomFfn per
+   shard, K4 and K5 once each per upsampler, no K1 or K8) and no
+   collective; (b) ``sp_value_and_grad_stacked``'s b2 DiceCE loss within
+   1e-4 relative and every parameter gradient at phase 8's gradient
+   tolerance, with the launches of that forward and backward (K11 twice
+   as many); (c) the b8 bf16 logits within 0.05 * max|fp32 logit|; (d) in
+   a group of one over NCCL, ``sp_forward`` equals the 1-shard stacked
+   form bitwise, with its collectives per forward counted; (e) ms per b8
+   forward and per b2 forward + backward, sharded against unsharded, as
+   phase 24 (d) times them, with the peak device memory of each.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -251,7 +267,9 @@ per b32 fp32 forward;
 K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
 22 (b)'s path; K11 also with ``launches_ring_scan``, its launches on phase
 23 (c)'s path; K11 and K13 (both modes) also with ``launches_sp_block``,
-their launches on phase 24 (a)'s path); the last line is
+their launches on phase 24 (a)'s path; K11, K3 (both kernels), K4 and K5
+also with ``launches_sp_model``, their launches on phase 25 (b)'s path);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2922,26 +2940,26 @@ def _fwd_bwd(fn, x, ct):
     return y.detach(), x.grad
 
 
-def _sp_times(fn):
+def _sp_times(fn, reps=SP_TIMED):
     """ms per call of ``fn``: the device's time with the calls queued
     behind ``kernel_ab.device_time``'s spin kernel, the device work summed
     by a CUDA-only torch.profiler, and the host's time to issue one call
-    (the spin covers the issue of its SP_TIMED calls only when they take
+    (the spin covers the issue of its ``reps`` calls only when they take
     less than it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ceigm_unet_tpu_torch.kernel_ab import device_time
-    spin = device_time(fn, SP_TIMED)
+    spin = device_time(fn, reps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     issue = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(SP_TIMED):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return spin, device_seconds(prof) * 1e3 / SP_TIMED, issue
+    return spin, device_seconds(prof) * 1e3 / reps, issue
 
 
 def phase_sp_block(dev, gpu):
@@ -3062,6 +3080,199 @@ def phase_sp_block(dev, gpu):
     return path
 
 
+# --- phase 25: the H-sharded model -----------------------------------------
+
+SPM_SIZE = 512                  # the 512x512 images H-sharding is for
+SPM_BATCH = 8                   # the forward's batch; the gradients at b2
+SPM_GRAD_BATCH = 2
+SPM_TIMED = 1                   # profiling a sharded step takes s
+
+
+def _spm_expected(model):
+    """Launches per stacked forward of ``model`` on SP_SHARDS shards (K11:
+    8 per quad block; K3 per CustomFfn once per shard, run per shard; K4
+    and K5 once per DySample and LGAG on all shards) and the collectives
+    of one forward in a group of one (each block's 4 ring-summary
+    all-gathers and 4 all-to-alls; each MultiScaleCAB's max and min
+    all-gathers and mean all-reduce; each DySample's source all-gather;
+    each SE pool's all-reduce; a group of one sends no halo)."""
+    from ceigm_unet_tpu_torch.models.emcad import DySample, MultiScaleCAB
+    from ceigm_unet_tpu_torch.models.groupmamba import GroupMambaLayer
+    from ceigm_unet_tpu_torch.models.layers import CustomFfn
+    from ceigm_unet_tpu_torch.models.ss2d import QuadGroupSS2D
+    count = lambda cls: sum(isinstance(m, cls) for m in model.modules())
+    blocks, cabs, dys = (count(QuadGroupSS2D), count(MultiScaleCAB),
+                         count(DySample))
+    ffns = count(CustomFfn)
+    launches = {"scan_rows": 8 * blocks,
+                "cffn_gemm": 2 * ffns * SP_SHARDS,
+                "cffn_dw3_inception7": ffns * SP_SHARDS,
+                "dysample_grid_sample": dys, "lgag_gate": dys}
+    calls = {"all_gather": 4 * blocks + 2 * cabs + dys,
+             "all_reduce": count(GroupMambaLayer) + cabs,
+             "all_to_all_single": 4 * blocks}
+    return launches, calls
+
+
+def phase_sp_model(dev, gpu):
+    """Phase 25 (see the module docstring). Returns the launches of each
+    kernel on (b)'s path, one forward and backward."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ceigm_unet_tpu_torch import losses
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    from ceigm_unet_tpu_torch.parallel import (init_data_parallel, mesh,
+                                               sp_forward,
+                                               sp_forward_stacked,
+                                               sp_value_and_grad_stacked)
+    t0 = time.perf_counter()
+    at = lambda: f"at {time.perf_counter() - t0:.1f} s"
+    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                        device=dev)
+    log(f"sp model: gm_tiny built on the card {at()}")
+    want_launches, want_calls = _spm_expected(model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x = torch.randn((SPM_BATCH, SPM_SIZE, SPM_SIZE, 1), generator=gen,
+                    device=dev)
+    sharded = lambda t: _sp_image(sp_forward_stacked(model, _sp_shards(t)))
+    shape = f"gm_tiny {SPM_SIZE}x{SPM_SIZE}"
+
+    # (a) the forward, b8 fp32, 4 stacked shards against unsharded
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with torch.no_grad(), mesh.watch_collectives() as coll:
+        got = sharded(x)
+    torch.cuda.synchronize()
+    fwd_counts = dict(_build.launch_counts)
+    if fwd_counts != want_launches or coll:
+        fail(f"sp model (a): launches per forward {fwd_counts}, expected "
+             f"{want_launches}; collectives {coll}")
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        want = model(x)
+    ref_counts = dict(_build.launch_counts)
+    if ref_counts.get("quad_scan_ln") != want_launches["scan_rows"] // 8:
+        fail(f"sp model (a): the unsharded forward launched {ref_counts}")
+    if got.shape != (SPM_BATCH, SPM_SIZE, SPM_SIZE, 9) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"sp model (a): logits {tuple(got.shape)} not finite or wrong "
+             f"shape")
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    rtol, atol = MODEL_TOL
+    if bool((err > atol * scale + rtol * want.abs()).any()):
+        fail(f"sp model (a): sharded logits differ from the unsharded "
+             f"model's by {err.max().item():.3e} (max|logit| {scale:.3e})")
+    log(f"sp model (a): {shape} b{SPM_BATCH} fp32, {SP_SHARDS} stacked "
+        f"H-shards vs the unsharded model on the card: max abs err "
+        f"{err.max().item():.3e} (max|logit| {scale:.3e}, rtol {rtol} atol "
+        f"{atol}*max); launches per forward {fwd_counts} (unsharded "
+        f"{ref_counts}), collectives 0 {at()}")
+
+    # (c) bf16 against fp32
+    model.dtype = torch.bfloat16
+    with torch.no_grad():
+        got16 = sharded(x)
+    model.dtype = torch.float32
+    if got16.dtype != torch.bfloat16:
+        fail(f"sp model (c): bf16 forward returned {got16.dtype} logits")
+    bf_err = check_bf16(got16, want, "sp model (c) bf16 logits")
+    log(f"sp model (c): {shape} b{SPM_BATCH} bf16 on {SP_SHARDS} stacked "
+        f"shards vs fp32 unsharded: max abs err {bf_err:.3e} (tol "
+        f"{BF16_MODEL_TOL}*max) {at()}")
+    del got, got16, want, err
+
+    # (b) the DiceCE loss and every parameter gradient, b2
+    xb = x[:SPM_GRAD_BATCH]
+    labels = torch.randint(0, 9, xb.shape[:3], generator=gen, device=dev)
+    stacked_grad = lambda: sp_value_and_grad_stacked(
+        model, _sp_shards(xb), _sp_shards(labels))
+
+    def plain_grad():
+        loss = losses.dice_ce_loss(model(xb), labels, ce_weight=0.4,
+                                   dc_weight=0.6)
+        names = [k for k, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        return loss.detach(), {k: g for k, g in zip(names, grads)}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    loss, grads = stacked_grad()
+    torch.cuda.synchronize()
+    path = dict(_build.launch_counts)
+    want_path = dict(want_launches, scan_rows=2 * want_launches["scan_rows"])
+    if path != want_path:
+        fail(f"sp model (b): launches per forward + backward {path}, "
+             f"expected {want_path}")
+    want_loss, want_grads = plain_grad()
+    if abs(loss.item() - want_loss.item()) > 1e-4 * abs(want_loss.item()):
+        fail(f"sp model (b): loss {loss.item()} vs unsharded "
+             f"{want_loss.item()}")
+    used = {k: grad_tolerance_used(
+        g, torch.zeros_like(g) if want_grads[k] is None else want_grads[k])
+        for k, g in grads.items()}
+    worst = max(used, key=used.get)
+    if used[worst] > 1.0:
+        fail(f"sp model (b): gradient {worst} uses {used[worst]:.3f} of "
+             f"its tolerance")
+    log(f"sp model (b): {shape} b{SPM_GRAD_BATCH} fp32 DiceCE on "
+        f"{SP_SHARDS} stacked shards vs unsharded: loss {loss.item():.6f} "
+        f"vs {want_loss.item():.6f}; {len(grads)} gradients within phase "
+        f"8's tolerance (nearest {worst} at {used[worst]:.2e}); launches "
+        f"per forward + backward {path} {at()}")
+    del grads, want_grads
+
+    # (d) a group of one over NCCL: sp_forward against one stacked shard
+    xd = x[:SPM_GRAD_BATCH]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spm_")
+    init_data_parallel(1, device="cuda", store_path=os.path.join(tmp, "s"),
+                       timeout_s=120.0)
+    try:
+        with torch.no_grad():
+            with mesh.watch_collectives() as coll:
+                got = sp_forward(model, xd)
+            want = sp_forward_stacked(model, xd[None])[0]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not torch.equal(got, want):
+        fail(f"sp model (d): sp_forward in a group of one differs from one "
+             f"stacked shard by {(got - want).abs().max().item():.3e}")
+    if coll != want_calls:
+        fail(f"sp model (d): collectives per forward {coll}, expected "
+             f"{want_calls}")
+    log(f"sp model (d): {shape} b{SPM_GRAD_BATCH} sp_forward in a group "
+        f"of one over NCCL: bitwise the 1-shard stacked form; collectives "
+        f"per forward {coll} {at()}")
+    del got, want
+
+    # (e) times and peak memory, sharded against unsharded
+    def timed_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return (*_sp_times(fn, SPM_TIMED), peak)
+    with torch.no_grad():
+        fwd = [timed_peak(lambda: f(x)) for f in (sharded, model)]
+    both = [timed_peak(f) for f in (stacked_grad, plain_grad)]
+    fmt = lambda t: (f"{t[0][0]:.3f} vs {t[1][0]:.3f} behind the spin, "
+                     f"{t[0][1]:.3f} vs {t[1][1]:.3f} of device work, "
+                     f"{t[0][2]:.3f} vs {t[1][2]:.3f} to issue, peak "
+                     f"{t[0][3]:.2f} vs {t[1][3]:.2f} GiB")
+    log(f"sp model (e): {shape} fp32, {SP_SHARDS} stacked shards vs "
+        f"unsharded, ms per b{SPM_BATCH} forward {fmt(fwd)}; per "
+        f"b{SPM_GRAD_BATCH} forward + backward {fmt(both)} {at()} | {gpu}")
+    del model, x
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3123,6 +3334,7 @@ def main() -> int:
                          phase_training_cli, dev, gpu)
     parallel = timed("23 parallel", phase_parallel, dev, gpu)
     sp_block = timed("24 sp block", phase_sp_block, dev, gpu)
+    sp_model = timed("25 sp model", phase_sp_model, dev, gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -3130,6 +3342,9 @@ def main() -> int:
     kernels["scan_rows"]["launches_ring_scan"] = parallel["scan_rows"]
     for name in ("scan_rows", "dwconv3x3", "dwconv3x3_flip"):
         kernels[name]["launches_sp_block"] = sp_block.get(name, 0)
+    for name in ("scan_rows", "cffn_gemm", "cffn_dw3_inception7",
+                 "dysample_grid_sample", "lgag_gate"):
+        kernels[name]["launches_sp_model"] = sp_model.get(name, 0)
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
     # op for K11 and K12, the kernel route's trainer for K13 (both modes)
@@ -3150,6 +3365,7 @@ def main() -> int:
            or k.get("launches_training_cli") == 0
            or k.get("launches_ring_scan") == 0
            or k.get("launches_sp_block") == 0
+           or k.get("launches_sp_model") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

@@ -529,6 +529,8 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.parallel.dryrun, "
             "ceigm_unet_tpu_torch.parallel.sp_context, "
             "ceigm_unet_tpu_torch.parallel.sp_ss2d, "
+            "ceigm_unet_tpu_torch.parallel.sp_ops, "
+            "ceigm_unet_tpu_torch.parallel.sp_model, "
             "ceigm_unet_tpu_torch.utils, "
             "ceigm_unet_tpu_torch.utils.debug, "
             "ceigm_unet_tpu_torch.convert.vssm_import; "

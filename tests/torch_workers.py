@@ -211,3 +211,106 @@ def sp_cases(cases):
             r["raises"] = raises
         out[C] = r
     return out
+
+
+def _halo_zero(x, ring):
+    """5 rows above and 3 below: three and two shards away at H/n = 2."""
+    from ceigm_unet_tpu_torch.parallel import sp_ops
+    return ring.unlead(sp_ops.row_halo(ring.lead(x), ring, 5, 3))
+
+
+def _halo_edge(x, ring):
+    from ceigm_unet_tpu_torch.parallel import sp_ops
+    return ring.unlead(sp_ops.row_halo(ring.lead(x), ring, 1, 2,
+                                       fill="edge"))
+
+
+def _gather_sample(x, ring, grid):
+    """DySample's grouped grid-sample of the map gathered over H, at the
+    shard's rows of ``grid``."""
+    from ceigm_unet_tpu_torch.ops.grid_sample import dysample_grid_sample
+    from ceigm_unet_tpu_torch.parallel import sp_ops
+    return sp_ops.sample_rows(dysample_grid_sample, x, grid, ring)
+
+
+def sharded_exchanges():
+    """name -> fn(x, ring, aux): each exchange of ``parallel/sp_ops.py`` on
+    the (model layout) shard x; ``aux`` is the shard's rows of the
+    exchange's extra input (the sample grid), or None."""
+    from ceigm_unet_tpu_torch.parallel import sp_ops
+    return {"halo_zero": lambda x, ring, aux: _halo_zero(x, ring),
+            "halo_edge": lambda x, ring, aux: _halo_edge(x, ring),
+            "sum": lambda x, ring, aux: sp_ops.mean_hw(x, ring),
+            "max": lambda x, ring, aux: sp_ops.amax_hw(x, ring),
+            "min": lambda x, ring, aux: sp_ops.amin_hw(x, ring),
+            "gather": _gather_sample}
+
+
+def run_exchanges(ring, cases, part, mine):
+    """Each exchange on the shard's rows (``part``) of its case's x and
+    aux, with the shard's (``mine``) cotangent, from (x, cts with a leading
+    shard axis, aux): the output and the gradient of sum(out * ct) in
+    x."""
+    out = {}
+    for name, fn in sharded_exchanges().items():
+        x, cts, aux = cases[name]
+        xs = part(x).requires_grad_()
+        y = fn(xs, ring, None if aux is None else part(aux))
+        (y * mine(cts)).sum().backward()
+        out[name] = y.detach().numpy(), xs.grad.numpy()
+    return out
+
+
+def sp_model_cases(sd, x, labels, exchanges):
+    """This rank's results of the H-sharded gm_test model (4 classes, eval,
+    ``sd``'s weights) on its rows of the global x (B, H, W, 1) and labels:
+
+    - ``logits``: ``sp_forward``'s shard, with the ``torch.distributed``
+      calls of that forward (``calls``) and the element count of each
+      all-gather's input in it (``gathered``, a wrapper local to this task);
+    - ``loss``, ``grads``: ``sp_value_and_grad``'s;
+    - ``exchanges``: :func:`run_exchanges` over the group, ``exchanges``
+      holding each case's global arrays, the cotangent with a leading
+      shard axis;
+    - ``train``: what ``sp_forward`` raises for the model in training
+      mode."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ceigm_unet_tpu_torch.convert import jax_import
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.parallel import sp_forward, sp_value_and_grad
+    from ceigm_unet_tpu_torch.parallel.ring_scan import _GroupRing
+    rank, n = mesh.rank_and_size()
+
+    def part(a):
+        rows = a.shape[1] // n
+        return torch.from_numpy(
+            np.ascontiguousarray(a[:, rank * rows:(rank + 1) * rows]))
+    model = build_model(num_classes=4, enc_name="gm_test", device="cpu")
+    jax_import.load_numpy_state_dict(model, sd)
+    gathered = []
+    all_gather = dist.all_gather
+
+    def counted(parts, t, *a, **kw):
+        gathered.append(t.numel())
+        return all_gather(parts, t, *a, **kw)
+    dist.all_gather = counted
+    try:
+        with torch.no_grad(), mesh.watch_collectives() as calls:
+            logits = sp_forward(model, part(x))
+    finally:
+        dist.all_gather = all_gather
+    loss, grads = sp_value_and_grad(model, part(x), part(labels).long())
+    out = dict(logits=logits.numpy(), calls=calls, gathered=gathered,
+               loss=loss.item(), grads={k: g.numpy() for k, g in
+                                        grads.items()},
+               exchanges=run_exchanges(
+                   _GroupRing(dist.group.WORLD), exchanges, part,
+                   lambda a: torch.from_numpy(a[rank].copy())))
+    try:
+        sp_forward(model.train(), part(x))
+        out["train"] = None
+    except ValueError as e:
+        out["train"] = str(e)
+    return out
