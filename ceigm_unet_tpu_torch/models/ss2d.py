@@ -33,7 +33,8 @@ from ceigm_unet_tpu_torch.ops.quad_scan import (quad_scan_ln_cat,
 from ceigm_unet_tpu_torch.ops.selective_scan import selective_scan
 from ceigm_unet_tpu_torch.parallel import sp_context
 from ceigm_unet_tpu_torch.parallel.sp_ss2d import (quad_group_ss2d_sp,
-                                                   quad_group_ss2d_stacked)
+                                                   quad_group_ss2d_stacked,
+                                                   ss2d_scan)
 
 
 class SS2DGroup(nn.Module):
@@ -250,6 +251,11 @@ class SS2D(nn.Module):
 
     ``debug``: the model's ``utils.debug.DebugGuards`` (None: no guard), at
     ``quad_ssm_nhwc.y`` (d_state 1) or in :func:`ssm_scan_core`.
+
+    Under ``parallel.sp_context``'s context x is H-shards (this rank's, or
+    n stacked in the batch): the conv takes its row halo and the four
+    directions scan on the context's ring
+    (``parallel.sp_ss2d.ss2d_scan``, K11; no debug guard there).
     """
 
     DIRECTIONS = (1, 2, 3, 4)
@@ -319,10 +325,15 @@ class SS2D(nn.Module):
             xc, z = xz.chunk(2, dim=-1)
             z = F.silu(z)
         if self.conv2d is not None:
-            xc = self.conv2d(xc)
+            xc = self.conv2d(xc)            # a row halo under the context
         xc = F.silu(xc)
-        y = (self._scan_directions(xc) if self.d_state == 1
-             else self._scan_cross(xc))
+        ring = sp_context.ring()
+        if ring is not None:
+            y = ss2d_scan(self, xc, ring)
+        elif self.d_state == 1:
+            y = self._scan_directions(xc)
+        else:
+            y = self._scan_cross(xc)
         y = self.out_norm(y).to(x.dtype)
         if z is not None:
             y = y * z

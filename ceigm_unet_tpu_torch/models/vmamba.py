@@ -22,11 +22,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ceigm_unet_tpu_torch.models.groupmamba import check_stages
 from ceigm_unet_tpu_torch.models.layers import (BatchNorm2d, Conv2d,
                                                 DropPath, LayerNorm, Linear,
                                                 dw_conv)
 from ceigm_unet_tpu_torch.models.ss2d import SS2D, init_ssm_params
 from ceigm_unet_tpu_torch.ops.activations import gelu
+from ceigm_unet_tpu_torch.parallel import sp_context, sp_ops
 from ceigm_unet_tpu_torch.utils.debug import DebugGuards, attach
 
 
@@ -222,7 +224,9 @@ class LegacyDecoder(nn.Module):
 
 class PatchMerging2D(nn.Module):
     """Downsample v1: space-to-depth [x00, x10, x01, x11] (odd sizes padded)
-    -> LN(4C) -> Linear(4C -> out_dim, or 2C; no bias)."""
+    -> LN(4C) -> Linear(4C -> out_dim, or 2C; no bias). On H-shards
+    (``parallel/sp_context.py``) each shard merges its own row pairs, and
+    odd shard rows raise."""
 
     def __init__(self, dim: int, out_dim: int = -1):
         super().__init__()
@@ -232,6 +236,9 @@ class PatchMerging2D(nn.Module):
 
     def forward(self, x):
         H, W = x.shape[1:3]
+        if H % 2 and sp_context.ring() is not None:
+            raise ValueError(f"sharded PatchMerging2D: the shard's H/n = {H} "
+                             f"is odd")
         if H % 2 or W % 2:
             x = nn.functional.pad(x, (0, 0, 0, W % 2, 0, H % 2))
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
@@ -262,7 +269,10 @@ class VSSM(nn.Module):
     """VMamba backbone (live config: SS2D d_state 1, ssm_ratio 1, conv bias
     off, ``v05_noz``, patch embed v2, downsample v3, plain MLP ratio 4).
     Returns the four stages' features, channel-last. ``img_size`` sizes the
-    optional ``pos_embed`` (1, C, img/4, img/4)."""
+    optional ``pos_embed`` (1, C, img/4, img/4). On H-shards
+    (``parallel/sp_context.py``) n must divide every stage's map
+    (``groupmamba.check_stages``), and each shard adds its own rows of
+    ``pos_embed``."""
 
     def __init__(self, dims: Sequence[int] = (96, 192, 384, 768),
                  depths: Sequence[int] = (2, 2, 8, 2),
@@ -301,9 +311,15 @@ class VSSM(nn.Module):
                                                     downsample_version))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
+        ring = sp_context.ring()
+        if ring is not None:
+            check_stages(x.shape[1] * ring.n, x.shape[2], ring.n,
+                         len(self.layers))
         x = self.patch_embed(x)
         if self.pos_embed is not None:
-            x = x + self.pos_embed.permute(0, 2, 3, 1).to(x.dtype)
+            pos = self.pos_embed[0].permute(1, 2, 0).to(x.dtype)
+            x = x + (pos if ring is None
+                     else sp_ops.shard_rows(pos, ring, x.shape[0]))
         feats = []
         for i, layer in enumerate(self.layers):
             x = layer(x, generator)

@@ -1,5 +1,6 @@
 """The whole MSVM-UNet on an image sharded over H: the forward and the
-DiceCE loss with its parameter gradients.
+DiceCE loss with its parameter gradients, for the GroupMamba model
+(``MSVMUNet``) and the legacy VMamba one (``MSVMUNetLegacy``).
 
 Counterpart of ``ceigm_unet_tpu/parallel/sp_model.py``, the scale-out for
 512²-class images, where the image and not only the batch is cut across
@@ -9,7 +10,9 @@ island. Here the model runs under ``parallel/sp_context.py``'s context,
 which routes each op that reads across rows or reduces over H:
 
 - the scan: ``QuadGroupSS2D.scan_groups`` -> ``parallel/sp_ss2d.py``'s
-  island (K11 on the ring scan; H <-> W all-to-alls);
+  island (K11 on the ring scan; H <-> W all-to-alls), and the legacy
+  ``SS2D`` -> ``sp_ss2d.ss2d_scan`` (its four directions over all channels
+  on the same ring; one all-to-all each way);
 - every spatial conv (the Stem, ``DownSample``, Pvt2Ffn's depthwise conv,
   SAB's 3/7/11, EUCB2's depthwise 3x3, DySample's dilated offset conv):
   ``layers.Conv2d`` -> a zero-filled row halo;
@@ -21,11 +24,18 @@ which routes each op that reads across rows or reduces over H:
   unbounded, so a sample may read any row; at 512² b8 the largest source
   is (8, 64, 64, 128), 4 MiB in fp32), each shard sampling its own rows
   from the image's base grid;
-- the last 4x bilinear upsample: a one-row halo with the border clamp.
+- the last 4x bilinear upsample: a one-row halo with the border clamp;
+- the legacy model's convs (its patch embed, downsamples, the 3/5/7, kx1
+  and 5x1 depthwise convs of its MLPs, LKPE's and FLKPE's depthwise 3x3)
+  take the same row halo; ``VSSM``'s optional ``pos_embed`` adds each
+  shard's own rows; ``PatchMerging2D`` merges each shard's row pairs.
 
 No op falls back to the unsharded model and no other map is gathered: an op
-that cannot run sharded raises. n shards must divide every stage's map (H /
-4 to H / 32, and W likewise, which the island re-shards): at 512² n in {2,
+that cannot run sharded raises, and before the forward runs, so does a
+model that holds a module class the context neither routes nor knows to be
+local (:func:`check_model`), so that an op with no route cannot run per
+shard and return wrong logits. n shards must divide every stage's map (H /
+4 to H / 32, and W likewise, which the scans re-shard): at 512² n in {2,
 4, 8} does; at 224², whose stage 4 is 7x7, no n > 1 does but 7. A stride-2
 conv raises when the shard's rows are odd.
 
@@ -62,13 +72,55 @@ from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.parallel.sp_context import sp_scan_island, sp_stacked
 
 
-def _eval_only(model, what: str) -> None:
+def _sharded_classes() -> frozenset:
+    """Every module class the H-sharded context runs: the routed ones read
+    across rows or reduce over H and take their exchanges under the
+    context; the local ones compute each row from that row alone (in eval
+    mode), or only call other modules."""
+    from torch import nn
+
+    from ceigm_unet_tpu_torch.models import (emcad, groupmamba, layers,
+                                             msvm_unet, ss2d, vmamba)
+    routed = {layers.Conv2d, layers.CustomFfn, ss2d.QuadGroupSS2D,
+              ss2d.SS2D, groupmamba.GroupMamba, groupmamba.GroupMambaLayer,
+              emcad.LGAG, emcad.MultiScaleCAB, emcad.DySample, emcad.EMCAD,
+              vmamba.VSSM, vmamba.PatchMerging2D}
+    local = {nn.Sequential, nn.ModuleList, nn.Identity, nn.ReLU,
+             layers.Linear, layers.LayerNorm, layers.BatchNorm2d,
+             layers.DropPath, layers.DwConv, layers.Pvt2Ffn,
+             layers.InceptionDWConvMultiScale, ss2d.SS2DGroup,
+             groupmamba.BlockMamba, groupmamba.Stem, groupmamba.DownSample,
+             emcad.SAB, emcad.ParallelAttentionFusion,
+             emcad.SplitChannelsOddEven, emcad.EUCB2, emcad._CmLayer,
+             emcad.Front, msvm_unet.MSVMUNet, msvm_unet._Encoder,
+             vmamba.Gelu, vmamba.InceptionDWConv2dBands, vmamba.MsMlp,
+             vmamba.Mlp, vmamba.VSSBlock, vmamba.VSSLayer, vmamba.MSVSS,
+             vmamba.LKPE, vmamba.FLKPE, vmamba.UpBlock, vmamba.LegacyDecoder,
+             vmamba.MSVMUNetLegacy}
+    return frozenset(routed | local)
+
+
+def check_model(model, what: str) -> None:
+    """Raise ``ValueError`` unless ``model`` is an ``MSVMUNet`` or an
+    ``MSVMUNetLegacy`` in eval mode whose every module is of a class that
+    the H-sharded context routes or knows to be local."""
+    from ceigm_unet_tpu_torch.models import MSVMUNet, MSVMUNetLegacy
+    if type(model) not in (MSVMUNet, MSVMUNetLegacy):
+        raise ValueError(f"{what}: takes an MSVMUNet or an MSVMUNetLegacy, "
+                         f"got {type(model).__name__}")
     if model.training:
         raise ValueError(
             f"{what}: the model is in training mode; the H-sharded model "
             f"runs in eval mode only (BatchNorm's running statistics, no "
             f"drop-path), as the JAX package's sp_forward(train=True) "
             f"raises. Call model.eval() first")
+    known = _sharded_classes()
+    for name, m in model.named_modules():
+        if type(m) not in known:
+            raise ValueError(
+                f"{what}: module {name} is a {type(m).__qualname__}, which "
+                f"has no H-sharded route; on shards it would compute each "
+                f"shard alone")
 
 
 def _group(group, what: str):
@@ -81,12 +133,13 @@ def _group(group, what: str):
 
 def sp_forward(model, x: torch.Tensor,
                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
-    """``model`` (an ``MSVMUNet`` in eval mode) on this rank's H-shard x
+    """``model`` (an ``MSVMUNet`` or ``MSVMUNetLegacy`` in eval mode; see
+    :func:`check_model`) on this rank's H-shard x
     (B, H/n, W, 1|3) of an image sharded in rank order over ``group`` (the
     active group by default): returns this rank's logits shard (B, H/n, W,
     classes). Every rank of the group calls it together; differentiable."""
     group = _group(group, "sp_forward")
-    _eval_only(model, "sp_forward")
+    check_model(model, "sp_forward")
     with sp_scan_island(group):
         return model(x)
 
@@ -94,7 +147,7 @@ def sp_forward(model, x: torch.Tensor,
 def sp_forward_stacked(model, x: torch.Tensor) -> torch.Tensor:
     """:func:`sp_forward`'s arithmetic on n H-shards stacked in one process:
     x (n, B, H/n, W, 1|3) -> logits (n, B, H/n, W, classes)."""
-    _eval_only(model, "sp_forward_stacked")
+    check_model(model, "sp_forward_stacked")
     n = x.shape[0]
     with sp_stacked(n):
         return model(x.flatten(0, 1)).unflatten(0, (n, -1))

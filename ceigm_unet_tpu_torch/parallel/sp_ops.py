@@ -197,13 +197,13 @@ def amin_hw(x: torch.Tensor, ring) -> torch.Tensor:
 
 
 def shard_rows(t: torch.Tensor, ring, batch: int) -> torch.Tensor:
-    """A value per image row, t (H,), as (batch, Hl): each image of the
-    shard's (model layout) batch with its own rows' values."""
-    per = t.view(ring.n, -1)
+    """Values per image row, t (H, ...), as (batch, Hl, ...): each image of
+    the shard's (model layout) batch with its own rows' values."""
+    per = t.unflatten(0, (ring.n, -1))                    # (n, Hl, ...)
     if _stacked(ring):
         return per[:, None].expand(ring.n, batch // ring.n,
-                                   per.shape[1]).reshape(batch, -1)
-    return per[ring.idx].expand(batch, -1)
+                                   *per.shape[1:]).flatten(0, 1)
+    return per[ring.idx].expand(batch, *per.shape[1:])
 
 
 def sample_rows(sample: Callable, x: torch.Tensor, grid: torch.Tensor,

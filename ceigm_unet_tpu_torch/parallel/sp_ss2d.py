@@ -1,5 +1,5 @@
-"""H-sharded QuadGroupSS2D: the block's forward, differentiable, on a 2-D
-feature map whose H axis is cut into n shards.
+"""H-sharded QuadGroupSS2D and SS2D: each block's forward, differentiable,
+on a 2-D feature map whose H axis is cut into n shards.
 
 Counterpart of ``ceigm_unet_tpu/parallel/sp_ss2d.py``, the scan island
 that the JAX package runs under ``shard_map``. Per scan direction (the
@@ -25,6 +25,16 @@ leading axis of one tensor in one process (:func:`quad_group_ss2d_stacked`,
 backward. No exchange gathers H or L: the ring's all-gathers carry one
 (decay, state) pair per scanned row and shard.
 
+The legacy MSVM-UNet's SS2D (``models/ss2d.py``: K directions over all
+channels) scans the same four directions on the same ring
+(:func:`ss2d_scan`): each direction's projections are pointwise, so the
+post-conv map is re-sharded from H to W once, and the column-major
+directions' projections and scans run there; their summed output comes
+back in one more all-to-all. Every local scan is K11 here too (two per
+direction in the forward); the unsharded SS2D's K10 (``sscan_dir``)
+returns no final state, which the ring carries. The JAX package leaves
+this op to GSPMD's own partitioning; here no exchange gathers L.
+
 Parameter gradients: each rank's backward holds its shard's share of a
 parameter's gradient; the gradient of a loss summed over the whole image
 is the sum of the shares over the group (what ``shard_map`` computes for
@@ -44,6 +54,7 @@ from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.parallel.ring_scan import (_GroupRing,
                                                      _StackedRing,
                                                      selective_scan_ring)
+from ceigm_unet_tpu_torch.parallel.sp_context import sp_scan_island, sp_stacked
 from ceigm_unet_tpu_torch.parallel.sp_ops import row_halo
 
 
@@ -139,3 +150,58 @@ def quad_group_ss2d_stacked(block, x: torch.Tensor) -> torch.Tensor:
     the leading axis of x (n, B, H/n, W, C) in one process: returns the
     (n, B, H/n, W, C) shards of the block's output."""
     return _island(block, x, _StackedRing(x.shape[0]))
+
+
+def ss2d_scan(op, xc: torch.Tensor, ring) -> torch.Tensor:
+    """The scans of ``op`` (a ``models.ss2d.SS2D``, any ``d_state``) on the
+    H-shards of its post-conv map xc (model layout (Bt, H/n, W, D)) over
+    ``ring``: returns the shards of the four directions' sum, fp32.
+
+    Direction k scans with ``x_proj_weight[k]`` (dt, B, C rows),
+    ``dt_projs_weight[k]`` / ``dt_projs_bias[k]`` and the rows [k*D,
+    (k+1)*D) of ``A_logs`` and ``Ds``, as the unsharded op's
+    ``_scan_directions`` and ``_scan_cross`` do."""
+    xl = ring.lead(xc)                                # (*lead, B, Hl, W, D)
+    W, D = xl.shape[-2:]
+    if W % ring.n:
+        raise ValueError(f"sharded SS2D: {ring.n} shards do not divide W "
+                         f"{W} (the column-major directions re-shard W)")
+    R, N, K = op.dt_rank, op.d_state, len(op.DIRECTIONS)
+    A = -torch.exp(op.A_logs.float()).view(K, D, N)
+    Ds = op.Ds.float().view(K, D)
+    # the map re-sharded once: W-shards of the transposed image, whose
+    # row-major order is the column-major walk
+    maps = {False: xl, True: _transpose_shards(xl, ring)}
+    sums = {}
+    for k, dirn in enumerate(op.DIRECTIONS):
+        cm = dirn in (2, 4)
+        u = maps[cm].flatten(-3, -2)                  # (.., B, L/n, D)
+        x_dbl = u @ op.x_proj_weight[k].t().to(u.dtype)
+        dt = x_dbl[..., :R] @ op.dt_projs_weight[k].t().to(u.dtype)
+        B4, C4 = x_dbl[..., R:].transpose(-1, -2).unflatten(
+            -2, (2, 1, N)).unbind(-4)                 # (.., B, 1, N, L/n)
+        y = selective_scan_ring(u.transpose(-1, -2), dt.transpose(-1, -2),
+                                A[k], B4, C4, Ds[k], op.dt_projs_bias[k],
+                                True, ring, reverse=dirn in (3, 4))
+        y = y.transpose(-1, -2).reshape(maps[cm].shape)
+        sums[cm] = y if cm not in sums else sums[cm] + y
+    return ring.unlead(sums[False] + _transpose_shards(sums[True], ring))
+
+
+def ss2d_sp(op, x: torch.Tensor,
+            group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """``op`` (a ``models.ss2d.SS2D``) on this rank's H-shard x (B, H/n, W,
+    C) of an image sharded in rank order over ``group`` (the active group
+    by default): returns this rank's shard of the op's output. Every rank
+    of the group calls it, and its backward, together. Raises without a
+    group, or when n does not divide W."""
+    with sp_scan_island(group):
+        return op(x)
+
+
+def ss2d_stacked(op, x: torch.Tensor) -> torch.Tensor:
+    """:func:`ss2d_sp`'s arithmetic on n H-shards stacked on the leading
+    axis of x (n, B, H/n, W, C) in one process: returns the (n, B, H/n, W,
+    C) shards of the op's output."""
+    with sp_stacked(x.shape[0]):
+        return op(x.flatten(0, 1)).unflatten(0, (x.shape[0], -1))

@@ -240,19 +240,31 @@ exits non-zero without its last line:
 25. sp model (the H-sharded MSVM-UNet, ``parallel/sp_model.py`` and the
    exchanges of ``parallel/sp_ops.py``; the multi-rank group form runs on
    the CPU over gloo in tests/test_torch_sp_model.py): gm_tiny (9 classes,
-   seeded init, eval) at 512x512, fp32 (TF32 off), on 4 H-shards stacked
-   on the card (``sp_forward_stacked``) against the unsharded model on the
-   card: (a) the b8 forward's logits at phase 4's tolerance, with its
-   launches (K11 8 per quad block, K3's GEMM and stencil per CustomFfn per
-   shard, K4 and K5 once each per upsampler, no K1 or K8) and no
-   collective; (b) ``sp_value_and_grad_stacked``'s b2 DiceCE loss within
-   1e-4 relative and every parameter gradient at phase 8's gradient
+   seeded init with DySample's two offset convs scaled 600x, as
+   tests/test_torch_sp_model.py scales them, eval) at 512x512, fp32 (TF32
+   off), on 4 H-shards stacked on the card (``sp_forward_stacked``)
+   against the unsharded model on the card: (a) the b8 forward's logits at
+   phase 4's tolerance, with its launches (K11 8 per quad block, K3's GEMM
+   and stencil per CustomFfn per shard, K4 and K5 once each per upsampler,
+   no K1 or K8) and no collective; at each DySample some samples of that
+   forward land two or more rows inside a shard other than their output
+   row's, so K4 reads the gathered source across shards; (b)
+   ``sp_value_and_grad_stacked``'s b2 DiceCE loss within 1e-4 relative and every parameter gradient at phase 8's gradient
    tolerance, with the launches of that forward and backward (K11 twice
    as many); (c) the b8 bf16 logits within 0.05 * max|fp32 logit|; (d) in
    a group of one over NCCL, ``sp_forward`` equals the 1-shard stacked
    form bitwise, with its collectives per forward counted; (e) ms per b8
    forward and per b2 forward + backward, sharded against unsharded, as
    phase 24 (d) times them, with the peak device memory of each.
+26. sp legacy (the H-sharded legacy MSVM-UNet: its SS2D's four directions
+   on the ring scan, ``parallel/sp_ss2d.py`` ``ss2d_scan``; the multi-rank
+   group form runs on the CPU over gloo in tests/test_torch_sp_legacy.py):
+   tiny_0230s (9 classes, seeded init, eval) at 512x512, fp32, phase 25's
+   (a) to (e) on 4 stacked shards against the unsharded model on the card
+   (K10): launches per sharded forward K11 8 per SS2D (160: 14 encoder and
+   6 decoder SS2Ds) and no K10, the unsharded forward's K10 once per SS2D;
+   320 K11 per forward + backward; in the group of one, per forward 4
+   all-gathers and 2 all-to-alls per SS2D and no all-reduce.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -268,12 +280,16 @@ K1-K5 and K8 also with ``launches_training_cli``, their launches on phase
 22 (b)'s path; K11 also with ``launches_ring_scan``, its launches on phase
 23 (c)'s path; K11 and K13 (both modes) also with ``launches_sp_block``,
 their launches on phase 24 (a)'s path; K11, K3 (both kernels), K4 and K5
-also with ``launches_sp_model``, their launches on phase 25 (b)'s path);
+also with ``launches_sp_model``, their launches on phase 25 (b)'s path;
+K11 also with ``launches_sp_legacy``, its launches on phase 26 (b)'s path,
+and K10 with ``launches_sp_legacy_reference``, its launches in phase 26
+(a)'s unsharded forward);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3086,6 +3102,7 @@ SPM_SIZE = 512                  # the 512x512 images H-sharding is for
 SPM_BATCH = 8                   # the forward's batch; the gradients at b2
 SPM_GRAD_BATCH = 2
 SPM_TIMED = 1                   # profiling a sharded step takes s
+OFFSET_SCALE = 600.0            # DySample's offset convs, phase 25
 
 
 def _spm_expected(model):
@@ -3114,15 +3131,98 @@ def _spm_expected(model):
     return launches, calls
 
 
+@contextlib.contextmanager
+def _seen_grids():
+    """The (source H, grid) of every ``dysample_grid_sample`` call the
+    model makes inside the block, in the yielded list."""
+    from ceigm_unet_tpu_torch.models import emcad
+    seen, sample = [], emcad.dysample_grid_sample
+
+    def spy(x, grid):
+        seen.append((x.shape[1], grid.detach()))
+        return sample(x, grid)
+    emcad.dysample_grid_sample = spy
+    try:
+        yield seen
+    finally:
+        emcad.dysample_grid_sample = sample
+
+
+def _cross_shard_rows(seen) -> str:
+    """Fails unless at each DySample some samples land two or more rows
+    inside a shard other than their output row's (the stacked form samples
+    the whole image's grid in one call)."""
+    shares = []
+    for H, grid in seen:
+        rows = (grid[..., 1] + 1.0) * H / 2.0 - 0.5     # source rows
+        hl, Ho = H // SP_SHARDS, grid.shape[1]
+        own = (torch.arange(Ho, device=grid.device) // (Ho // SP_SHARDS)
+               ).view(1, -1, 1, 1) * hl
+        inside = (rows <= own - 2) | (rows >= own + hl + 1)
+        shares.append(inside.float().mean().item())
+    if len(seen) != 3 or min(shares) < 1e-3:
+        fail(f"sp model (a): DySample's samples two or more rows inside "
+             f"another shard: shares {shares} of {len(seen)} calls")
+    return ", ".join(f"{x:.4f}" for x in shares)
+
+
 def phase_sp_model(dev, gpu):
     """Phase 25 (see the module docstring). Returns the launches of each
     kernel on (b)'s path, one forward and backward."""
+    from ceigm_unet_tpu_torch.models import build_model
+    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                        device=dev)
+    # DySample's two offset convs 600x (tests/test_torch_sp_model.py's
+    # scale): samples land rows inside other shards and past the border
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if ".offset." in k:
+                p.mul_(OFFSET_SCALE)
+    launches, calls = _spm_expected(model)
+    return _sp_whole(dev, gpu, model, "sp model", "gm_tiny", launches,
+                     calls, {"quad_scan_ln": launches["scan_rows"] // 8},
+                     _seen_grids)
+
+
+def _spl_expected(model):
+    """Launches per stacked forward of the legacy model on SP_SHARDS shards
+    (K11: 8 per SS2D, two per direction; no K10) and the collectives of
+    one forward in a group of one (each SS2D's 4 ring-summary all-gathers
+    and its 2 all-to-alls: the map to W-shards, the column-major sum
+    back); and the unsharded forward's launches (K10 once per SS2D)."""
+    from ceigm_unet_tpu_torch.models.ss2d import SS2D
+    ops = sum(isinstance(m, SS2D) for m in model.modules())
+    return ({"scan_rows": 8 * ops},
+            {"all_gather": 4 * ops, "all_to_all_single": 2 * ops},
+            {"sscan_dir": ops})
+
+
+def phase_sp_legacy(dev, gpu):
+    """Phase 26 (see the module docstring). Returns the launches of each
+    kernel on (b)'s path, one forward and backward, and the unsharded
+    reference forward's."""
+    from ceigm_unet_tpu_torch.models import build_legacy_model
+    model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
+                               seed=SEED, device=dev)
+    launches, calls, ref = _spl_expected(model)
+    path = _sp_whole(dev, gpu, model, "sp legacy", "tiny_0230s", launches,
+                     calls, ref)
+    return path, ref
+
+
+def _sp_whole(dev, gpu, model, tag, name, want_launches, want_calls,
+              ref_launches, watch=contextlib.nullcontext):
+    """Phases 25 and 26 on ``model``: (a) to (e) of the module docstring.
+    ``want_launches`` / ``want_calls``: the launches per stacked forward
+    and the collectives per forward in a group of one; ``ref_launches``
+    those the unsharded forward must make (it may make others); ``watch``
+    a context whose value, if any, holds DySample's grids of (a)'s sharded
+    forward. Returns the launches of each kernel on (b)'s path."""
     import tempfile
 
     import torch.distributed as dist
 
     from ceigm_unet_tpu_torch import losses
-    from ceigm_unet_tpu_torch.models import build_model
     from ceigm_unet_tpu_torch.ops import _build
     from ceigm_unet_tpu_torch.parallel import (init_data_parallel, mesh,
                                                sp_forward,
@@ -3130,47 +3230,47 @@ def phase_sp_model(dev, gpu):
                                                sp_value_and_grad_stacked)
     t0 = time.perf_counter()
     at = lambda: f"at {time.perf_counter() - t0:.1f} s"
-    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
-                        device=dev)
-    log(f"sp model: gm_tiny built on the card {at()}")
-    want_launches, want_calls = _spm_expected(model)
     gen = torch.Generator(device=dev).manual_seed(SEED + 25)
     x = torch.randn((SPM_BATCH, SPM_SIZE, SPM_SIZE, 1), generator=gen,
                     device=dev)
     sharded = lambda t: _sp_image(sp_forward_stacked(model, _sp_shards(t)))
-    shape = f"gm_tiny {SPM_SIZE}x{SPM_SIZE}"
+    shape = f"{name} {SPM_SIZE}x{SPM_SIZE}"
 
     # (a) the forward, b8 fp32, 4 stacked shards against unsharded
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    with torch.no_grad(), mesh.watch_collectives() as coll:
+    with torch.no_grad(), mesh.watch_collectives() as coll, \
+            watch() as seen:
         got = sharded(x)
     torch.cuda.synchronize()
     fwd_counts = dict(_build.launch_counts)
     if fwd_counts != want_launches or coll:
-        fail(f"sp model (a): launches per forward {fwd_counts}, expected "
+        fail(f"{tag} (a): launches per forward {fwd_counts}, expected "
              f"{want_launches}; collectives {coll}")
+    crossing = ("" if seen is None else f"; shares of DySample's samples "
+                f"2+ rows inside another shard {_cross_shard_rows(seen)}")
     _build.reset_launch_counts()
     with torch.no_grad():
         want = model(x)
     ref_counts = dict(_build.launch_counts)
-    if ref_counts.get("quad_scan_ln") != want_launches["scan_rows"] // 8:
-        fail(f"sp model (a): the unsharded forward launched {ref_counts}")
+    if any(ref_counts.get(k) != v for k, v in ref_launches.items()):
+        fail(f"{tag} (a): the unsharded forward launched {ref_counts}, "
+             f"expected {ref_launches} among them")
     if got.shape != (SPM_BATCH, SPM_SIZE, SPM_SIZE, 9) \
             or not bool(torch.isfinite(got).all()):
-        fail(f"sp model (a): logits {tuple(got.shape)} not finite or wrong "
+        fail(f"{tag} (a): logits {tuple(got.shape)} not finite or wrong "
              f"shape")
     err = (got - want).abs()
     scale = want.abs().max().item()
     rtol, atol = MODEL_TOL
     if bool((err > atol * scale + rtol * want.abs()).any()):
-        fail(f"sp model (a): sharded logits differ from the unsharded "
+        fail(f"{tag} (a): sharded logits differ from the unsharded "
              f"model's by {err.max().item():.3e} (max|logit| {scale:.3e})")
-    log(f"sp model (a): {shape} b{SPM_BATCH} fp32, {SP_SHARDS} stacked "
+    log(f"{tag} (a): {shape} b{SPM_BATCH} fp32, {SP_SHARDS} stacked "
         f"H-shards vs the unsharded model on the card: max abs err "
         f"{err.max().item():.3e} (max|logit| {scale:.3e}, rtol {rtol} atol "
         f"{atol}*max); launches per forward {fwd_counts} (unsharded "
-        f"{ref_counts}), collectives 0 {at()}")
+        f"{ref_counts}), collectives 0{crossing} {at()}")
 
     # (c) bf16 against fp32
     model.dtype = torch.bfloat16
@@ -3178,12 +3278,12 @@ def phase_sp_model(dev, gpu):
         got16 = sharded(x)
     model.dtype = torch.float32
     if got16.dtype != torch.bfloat16:
-        fail(f"sp model (c): bf16 forward returned {got16.dtype} logits")
-    bf_err = check_bf16(got16, want, "sp model (c) bf16 logits")
-    log(f"sp model (c): {shape} b{SPM_BATCH} bf16 on {SP_SHARDS} stacked "
+        fail(f"{tag} (c): bf16 forward returned {got16.dtype} logits")
+    bf_err = check_bf16(got16, want, f"{tag} (c) bf16 logits")
+    log(f"{tag} (c): {shape} b{SPM_BATCH} bf16 on {SP_SHARDS} stacked "
         f"shards vs fp32 unsharded: max abs err {bf_err:.3e} (tol "
         f"{BF16_MODEL_TOL}*max) {at()}")
-    del got, got16, want, err
+    del got, got16, want, err, seen
 
     # (b) the DiceCE loss and every parameter gradient, b2
     xb = x[:SPM_GRAD_BATCH]
@@ -3205,20 +3305,20 @@ def phase_sp_model(dev, gpu):
     path = dict(_build.launch_counts)
     want_path = dict(want_launches, scan_rows=2 * want_launches["scan_rows"])
     if path != want_path:
-        fail(f"sp model (b): launches per forward + backward {path}, "
+        fail(f"{tag} (b): launches per forward + backward {path}, "
              f"expected {want_path}")
     want_loss, want_grads = plain_grad()
     if abs(loss.item() - want_loss.item()) > 1e-4 * abs(want_loss.item()):
-        fail(f"sp model (b): loss {loss.item()} vs unsharded "
+        fail(f"{tag} (b): loss {loss.item()} vs unsharded "
              f"{want_loss.item()}")
     used = {k: grad_tolerance_used(
         g, torch.zeros_like(g) if want_grads[k] is None else want_grads[k])
         for k, g in grads.items()}
     worst = max(used, key=used.get)
     if used[worst] > 1.0:
-        fail(f"sp model (b): gradient {worst} uses {used[worst]:.3f} of "
+        fail(f"{tag} (b): gradient {worst} uses {used[worst]:.3f} of "
              f"its tolerance")
-    log(f"sp model (b): {shape} b{SPM_GRAD_BATCH} fp32 DiceCE on "
+    log(f"{tag} (b): {shape} b{SPM_GRAD_BATCH} fp32 DiceCE on "
         f"{SP_SHARDS} stacked shards vs unsharded: loss {loss.item():.6f} "
         f"vs {want_loss.item():.6f}; {len(grads)} gradients within phase "
         f"8's tolerance (nearest {worst} at {used[worst]:.2e}); launches "
@@ -3240,12 +3340,12 @@ def phase_sp_model(dev, gpu):
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     if not torch.equal(got, want):
-        fail(f"sp model (d): sp_forward in a group of one differs from one "
+        fail(f"{tag} (d): sp_forward in a group of one differs from one "
              f"stacked shard by {(got - want).abs().max().item():.3e}")
     if coll != want_calls:
-        fail(f"sp model (d): collectives per forward {coll}, expected "
+        fail(f"{tag} (d): collectives per forward {coll}, expected "
              f"{want_calls}")
-    log(f"sp model (d): {shape} b{SPM_GRAD_BATCH} sp_forward in a group "
+    log(f"{tag} (d): {shape} b{SPM_GRAD_BATCH} sp_forward in a group "
         f"of one over NCCL: bitwise the 1-shard stacked form; collectives "
         f"per forward {coll} {at()}")
     del got, want
@@ -3265,7 +3365,7 @@ def phase_sp_model(dev, gpu):
                      f"{t[0][1]:.3f} vs {t[1][1]:.3f} of device work, "
                      f"{t[0][2]:.3f} vs {t[1][2]:.3f} to issue, peak "
                      f"{t[0][3]:.2f} vs {t[1][3]:.2f} GiB")
-    log(f"sp model (e): {shape} fp32, {SP_SHARDS} stacked shards vs "
+    log(f"{tag} (e): {shape} fp32, {SP_SHARDS} stacked shards vs "
         f"unsharded, ms per b{SPM_BATCH} forward {fmt(fwd)}; per "
         f"b{SPM_GRAD_BATCH} forward + backward {fmt(both)} {at()} | {gpu}")
     del model, x
@@ -3335,6 +3435,8 @@ def main() -> int:
     parallel = timed("23 parallel", phase_parallel, dev, gpu)
     sp_block = timed("24 sp block", phase_sp_block, dev, gpu)
     sp_model = timed("25 sp model", phase_sp_model, dev, gpu)
+    sp_legacy, sp_legacy_ref = timed("26 sp legacy", phase_sp_legacy, dev,
+                                     gpu)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -3345,6 +3447,9 @@ def main() -> int:
     for name in ("scan_rows", "cffn_gemm", "cffn_dw3_inception7",
                  "dysample_grid_sample", "lgag_gate"):
         kernels[name]["launches_sp_model"] = sp_model.get(name, 0)
+    kernels["scan_rows"]["launches_sp_legacy"] = sp_legacy["scan_rows"]
+    kernels["sscan_dir"]["launches_sp_legacy_reference"] = \
+        sp_legacy_ref["sscan_dir"]
     # each kernel's launches on its own main path: gm_tiny serving for
     # K1-K5, training for K8, legacy serving for K10, the selective_scan
     # op for K11 and K12, the kernel route's trainer for K13 (both modes)
@@ -3366,6 +3471,7 @@ def main() -> int:
            or k.get("launches_ring_scan") == 0
            or k.get("launches_sp_block") == 0
            or k.get("launches_sp_model") == 0
+           or k.get("launches_sp_legacy") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

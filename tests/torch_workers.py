@@ -314,3 +314,47 @@ def sp_model_cases(sd, x, labels, exchanges):
     except ValueError as e:
         out["train"] = str(e)
     return out
+
+
+def sp_legacy_cases(sd, x, labels, blocks):
+    """This rank's results of the H-sharded legacy MSVM-UNet (vssm_test, 9
+    classes, eval, ``sd``'s weights) on its rows of the global x (B, H, W,
+    1) and labels:
+
+    - ``logits``: ``sp_forward``'s shard, with the ``torch.distributed``
+      calls of that forward (``calls``);
+    - ``loss``, ``grads``: ``sp_value_and_grad``'s;
+    - ``blocks``: for each d_state -> (the SS2D's state dict, x, ct; global
+      (B, H, W, C) arrays), ``ss2d_sp``'s output shard and the gradients of
+      sum(out * ct) in this rank's x shard and in every parameter (this
+      rank's share)."""
+    import numpy as np
+
+    from ceigm_unet_tpu_torch.convert import jax_import
+    from ceigm_unet_tpu_torch.models import build_legacy_model
+    from ceigm_unet_tpu_torch.models.ss2d import SS2D
+    from ceigm_unet_tpu_torch.parallel import sp_forward, sp_value_and_grad
+    from ceigm_unet_tpu_torch.parallel.sp_ss2d import ss2d_sp
+    rank, n = mesh.rank_and_size()
+
+    def part(a):
+        rows = a.shape[1] // n
+        return torch.from_numpy(
+            np.ascontiguousarray(a[:, rank * rows:(rank + 1) * rows]))
+    model = build_legacy_model(enc_name="vssm_test", device="cpu")
+    jax_import.load_numpy_state_dict(model, sd)
+    with torch.no_grad(), mesh.watch_collectives() as calls:
+        logits = sp_forward(model, part(x))
+    loss, grads = sp_value_and_grad(model, part(x), part(labels).long())
+    out = dict(logits=logits.numpy(), calls=calls, loss=loss.item(),
+               grads={k: g.numpy() for k, g in grads.items()}, blocks={})
+    for d_state, (bsd, bx, ct) in blocks.items():
+        op = SS2D(bx.shape[-1], d_state=d_state)
+        jax_import.load_numpy_state_dict(op, bsd)
+        xs = part(bx).requires_grad_()
+        y = ss2d_sp(op, xs)
+        (y * part(ct)).sum().backward()
+        out["blocks"][d_state] = (
+            y.detach().numpy(), xs.grad.numpy(),
+            {k: p.grad.numpy() for k, p in op.named_parameters()})
+    return out
