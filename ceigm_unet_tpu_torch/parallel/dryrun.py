@@ -18,6 +18,7 @@ each runs :func:`_dryrun_rank`:
 """
 from __future__ import annotations
 
+import argparse
 import multiprocessing
 import os
 import shutil
@@ -210,3 +211,23 @@ def run(n: int, device: str = "cpu", timeout_s: float = 600.0) -> None:
             for k, a in s0.items():
                 if not np.array_equal(a, sr[k]):
                     raise AssertionError(f"rank {r} holds another {k}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """``python -m ceigm_unet_tpu_torch.parallel.dryrun [N] [--device
+    cuda|cpu]``: :func:`run` over N ranks (8 by default, as the JAX dry
+    run's), on the cards unless ``--device cpu`` is given; prints
+    ``dryrun_multichip: OK`` when every check passed."""
+    parser = argparse.ArgumentParser(
+        prog="python -m ceigm_unet_tpu_torch.parallel.dryrun",
+        description="multi-process dry run: data-parallel training and the "
+                    "ring scan over N ranks")
+    parser.add_argument("n", nargs="?", type=int, default=8)
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = parser.parse_args(argv)
+    run(args.n, args.device)
+    print("dryrun_multichip: OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -270,9 +270,24 @@ def load_pretrained_encoder(model: MSVMUNet, ckpt_path: str,
     """Load the encoder from an upstream GroupMamba classification
     checkpoint (reference model/gm/__init__.py:60-86): its keys remapped
     (``convert/torch_import.py``), the classifier's head and final norm
-    dropped, every other key loaded into the encoder strictly. The decoder
-    is not touched."""
+    dropped. As the JAX package's converter reads it, every key the encoder
+    holds must be present (a missing one raises ``KeyError`` naming it; a
+    BatchNorm's ``num_batches_tracked``, which the JAX converter does not
+    read, may be absent), keys the encoder lacks are not loaded (their
+    names are logged), and a tensor of another shape raises. The decoder is
+    not touched."""
     logger.info(f"loading pretrained encoder: {ckpt_path}")
     raw = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     sd = remap_pretrained_groupmamba_keys(raw.get("state_dict", raw))
-    model.encoder.gm_encoder.load_state_dict(sd, strict=True)
+    encoder = model.encoder.gm_encoder
+    own = encoder.state_dict()
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"pretrained encoder checkpoint lacks {missing}")
+    extra = sorted(k for k in sd if k not in own)
+    if extra:
+        logger.info(f"pretrained encoder: not loaded, the encoder lacks "
+                    f"{extra}")
+    encoder.load_state_dict({k: v for k, v in sd.items() if k in own},
+                            strict=False)

@@ -31,7 +31,8 @@ exits non-zero without its last line:
    where channel vectors straddle two groups; each kernel and the library call
    beside it are also timed as the device's work alone (``device_ms``,
    ``library_device_ms``: the calls queue behind a spin kernel, so the host's
-   time per call does not enter);
+   time per call does not enter); K1 also at the four shapes of phase 27's
+   64x64 input (16x16 D16 to 2x2 D112: L 256 to 4);
 4. model: MSVM-UNet gm_tiny (9 classes, seeded random weights) at 224x224,
    batch 2, fp32 on the card against the same model on the CPU (rtol 1e-3,
    atol 1e-3 * max|CPU logits|), and the kernel launches of one forward;
@@ -49,7 +50,8 @@ exits non-zero without its last line:
    contiguous operands and in the model's (B, L, K, D) layout, and on a
    long-memory case (decays within 1e-4 of 1 over 3136 pixels); timed
    through the wrapper in the model's layout, host in the loop and device
-   time, beside the plain version;
+   time, beside the plain version; then at b2 at the four shapes of phase
+   27's 64x64 input (L 256 to 4);
 8. train step vs CPU: one unfrozen gm_tiny train step, batch 2, fp32, on
    the card and on the CPU from the same weights, batch and drop-path
    masks: the loss, every parameter's gradient (rtol 2e-3, atol 1e-8 +
@@ -71,11 +73,11 @@ exits non-zero without its last line:
 10. legacy kernels: the VMamba scans against their plain versions, timed
    beside them: K10 (``csrc/sscan_dir.cu``) at each of the four 224x224
    tiny_0230s SS2D shapes at b2 fp32, b2 bf16 and b128 bf16 (phase 3's
-   tolerances); K12 and K11 (``csrc/scan_rows.cu``) at the reference
-   selective-scan speed test's shape (B 128, D 96, N 1, L 4096, bf16 in;
-   K12 with fp32 out at the fp32 tolerance and with bf16 out at the bf16
-   one) and K11 also at B 8, D 96, N 16, L 3136 (fp32 tolerance), each
-   also timed as device time;
+   tolerances), and at the four of phase 27's 64x64 input (L 256 to 4); K12
+   and K11 (``csrc/scan_rows.cu``) at the reference selective-scan speed
+   test's shape (B 128, D 96, N 1, L 4096, bf16 in; K12 with fp32 out at
+   the fp32 tolerance and with bf16 out at the bf16 one) and K11 also at B
+   8, D 96, N 16, L 3136 (fp32 tolerance), each also timed as device time;
 11. legacy model: the legacy MSVM-UNet (VSSM tiny_0230s + the published
    decoder, 9 classes, seeded random weights) at 224x224, b2 fp32, on the
    card against the CPU (phase 4's tolerance), the launches of one forward
@@ -117,7 +119,8 @@ exits non-zero without its last line:
    768, past one 128-channel tile) at b2 and b48 fp32 against its plain
    version (phase 7's tolerance and cases, in the layouts the legacy
    backward passes: the decay in (K, B, L, D), the adjoint's drive in
-   (B, L, K, D)), timed at b48 beside it with the bound;
+   (B, L, K, D)), timed at b48 beside it with the bound; then at b2 at the
+   four shapes of phase 27's 64x64 input (L 256 to 4);
 18. legacy train step vs CPU: phase 8's check on one unfrozen tiny_0230s
    b2 fp32 step (loss, every gradient against its tolerance or twice its
    own reorder floor, the BN running statistics of the 3 LKPE and the
@@ -265,6 +268,32 @@ exits non-zero without its last line:
    6 decoder SS2Ds) and no K10, the unsharded forward's K10 once per SS2D;
    320 K11 per forward + backward; in the group of one, per forward 4
    all-gathers and 2 all-to-alls per SS2D and no all-reduce.
+27. training trajectories: gm_tiny and tiny_0230s (9 classes, seeded init)
+   at 64x64, batch 2. (a) Phase 8's one-step check on each at 64x64, with a
+   float64 CPU step as the exact reference (``float64_compute``, in a
+   process of its own) in place of the runs on fewer threads: a gradient's
+   floor is how far the CPU's fp32 gradient lies from the exact one. (b) 20
+   steps of the training CLI's AdamW and schedule (``_trainer``; gm_tiny
+   from the CLIs' LR 5e-4, tiny_0230s from 2e-6, where its trajectory is
+   not chaotic in fp32: see TRAJ_MODELS), the encoder frozen for the first
+   2, on two synthetic batches used alternately, each step's drop-path
+   masks from a CPU generator seeded per step; run (i) on the card in fp32
+   (TF32 off) and (iv) in bf16, each step's launches checked (K1/K3/K4/K8
+   or K10/K8 as phases 8 and 18 count them, K8's frozen count while
+   frozen), then one eval forward of the first batch (its launches too: K5
+   for gm_tiny); and on the CPU, (ii) in fp32 on 2 threads, (iii) in fp32
+   on 1 thread (its reorder floor), and for gm_tiny (v) in bf16, each run
+   (and each float64 step of (a)) in one of 3 spawned processes at the
+   lowest priority, started after phase 3: beside phases 4-26. Fails
+   unless: every loss is finite; the encoder is bitwise unchanged through
+   the frozen steps; card fp32 vs CPU fp32: each step's loss within 2e-4 *
+   (1 + step) relative and the final eval logits at rtol 5e-3, atol 5e-3 *
+   max|logit| (PARITY.md's trajectory tolerances); card bf16 vs card fp32:
+   each loss within 5e-2 relative and the final logits within 0.05 *
+   max|logit|. Each bound is read at its own step against max(1, 2 x the
+   share of it the CPU's own drift uses at that step ((iii) against (ii);
+   (v) against (ii)), never past 2x. Prints every run's 20 losses and each
+   bound's largest share used.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -283,7 +312,8 @@ their launches on phase 24 (a)'s path; K11, K3 (both kernels), K4 and K5
 also with ``launches_sp_model``, their launches on phase 25 (b)'s path;
 K11 also with ``launches_sp_legacy``, its launches on phase 26 (b)'s path,
 and K10 with ``launches_sp_legacy_reference``, its launches in phase 26
-(a)'s unsharded forward);
+(a)'s unsharded forward; K1-K5, K8 and K10 also with
+``launches_trajectory``, their launches over phase 27's card runs);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -538,7 +568,11 @@ def kernel_cases(dev):
                               " (not on the path)", 0,
                               quad(56, 56, 16, model_layout=False)),
                              ("56x56 D16, long memory (not on the path)", 0,
-                              quad(56, 56, 16, long_memory=True))]),
+                              quad(56, 56, 16, long_memory=True))]
+                         # phase 27's 64x64 maps: L 256 down to 4
+                         + [(f"{S}x{S} D{D} (64x64, phase 27)", 0,
+                             quad(S, S, D))
+                            for _, _, S, D in traj_shapes(TRAIN_SCAN_SHAPES)]),
         "cffn_gemm": ("cuda", src + "cffn_gemm.cu",
                       "ceigm_unet_tpu/ops/ffn_pallas.py:114",
                       [(f"fc1 {s}x{s} {c}->{h}", n, gemm(s * s, c, h, False))
@@ -909,7 +943,9 @@ def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
                 bound_by="bytes", library_ms=None, device_ms=dev_ms)
 
 
-def _trainer(model, dev):
+def _trainer(model, dev, base_lr=5e-4):
+    """The training CLIs' step: AdamW (weight decay 1e-3) on the per-epoch
+    cosine from ``base_lr`` (the CLIs' 5e-4)."""
     from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr,
                                                       make_optimizer,
                                                       make_train_step,
@@ -917,7 +953,7 @@ def _trainer(model, dev):
     from ceigm_unet_tpu_torch.entry import SYNAPSE_STEPS_PER_EPOCH
     return make_train_step(
         model, make_optimizer(param_groups(model), 1e-3),
-        cosine_lr(5e-4, 1e-6, 300, SYNAPSE_STEPS_PER_EPOCH))
+        cosine_lr(base_lr, 1e-6, 300, SYNAPSE_STEPS_PER_EPOCH))
 
 
 def grad_tolerance_used(got, want) -> float:
@@ -930,37 +966,65 @@ def grad_tolerance_used(got, want) -> float:
     return ((got - want).abs() / tol).max().item()
 
 
+def _step_model(legacy, routes, device, img):
+    """Phase 8's model (gm_tiny built with ``routes``; with ``legacy``
+    tiny_0230s), its ``_trainer`` and batch, at ``img``."""
+    from ceigm_unet_tpu_torch.entry import synthetic_batch
+    from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
+    if legacy:
+        model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
+                                   seed=SEED, device=device)
+    else:
+        model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+                            device=device, **(routes or {}))
+    return model, synthetic_batch(2, img, 9, SEED, "cpu")
+
+
+def _float64_step(legacy, routes, img, threads=2):
+    """The exact reference of :func:`phase_train_vs_cpu`: its step on the
+    CPU in float64 (:func:`float64_compute`) on ``threads`` threads, in a
+    process of its own (phase 27's pool), from the same fp32 weights cast.
+    Returns the loss and every gradient."""
+    torch.set_num_threads(threads)
+    model, batch = _step_model(legacy, routes, "cpu", img)
+    model = model.double()
+    model.dtype = torch.float64
+    step = _trainer(model, "cpu")
+    with float64_compute():
+        loss = step({"image": batch["image"].double(),
+                     "label": batch["label"]},
+                    generator=torch.Generator().manual_seed(SEED))["loss"]
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
 def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
-                       legacy=False):
-    """One unfrozen gm_tiny train step (fp32, TF32 off, b2; the model built
-    with ``routes``, launching ``per_step``; with ``legacy`` the legacy
-    tiny_0230s model instead) on the card
+                       legacy=False, img=PHASE8_IMG, exact=None):
+    """One unfrozen gm_tiny train step (fp32, TF32 off, b2 at ``img``; the
+    model built with ``routes``, launching ``per_step``; with ``legacy`` the
+    legacy tiny_0230s model instead) on the card
     and on the CPU from the same weights, batch and drop-path masks (one
     seeded CPU generator on each side): loss, every gradient, the BN
     running statistics, and the card's launches. The CPU step runs again
     on fewer threads, which only reorders its sums: how far that moves a
     tensor's gradient is that tensor's noise floor, which the card's
-    gradient of it is read against."""
-    from ceigm_unet_tpu_torch.entry import synthetic_batch
-    from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
+    gradient of it is read against. With ``exact`` (the pending result of
+    :func:`_float64_step` for the same model and size), the float64 step
+    takes the place of the runs on fewer threads, and the floor is how far
+    the CPU's fp32 gradient lies from that exact one: the CPU's reordered
+    runs may round alike, and then measure nothing."""
     from ceigm_unet_tpu_torch.ops import _build
     what = "tiny_0230s" if legacy else f"gm_tiny {routes or ''}"
-    batch = synthetic_batch(2, PHASE8_IMG, 9, SEED, "cpu")
     threads = torch.get_num_threads()
-    reorders = sorted({max(1, threads // 2), max(1, threads // 4), 1}
-                      - {threads}, reverse=True)
-    runs = {}
+    reorders = [] if exact else sorted(
+        {max(1, threads // 2), max(1, threads // 4), 1} - {threads},
+        reverse=True)
+    runs, truth = {}, {}
     for tag, device, n_threads in (
             [("cpu", "cpu", threads)]
             + [(f"cpu on {n}", "cpu", n) for n in reorders]
             + [("card", dev, threads)]):
         torch.set_num_threads(n_threads)
-        if legacy:
-            model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
-                                       seed=SEED, device=device)
-        else:
-            model = build_model(num_classes=9, enc_name="gm_tiny",
-                                seed=SEED, device=device, **(routes or {}))
+        model, batch = _step_model(legacy, routes, device, img)
         step = _trainer(model, device)
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -969,6 +1033,8 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
         runs[tag] = (loss.item(), model, dict(_build.launch_counts),
                      time.perf_counter() - t0)
     torch.set_num_threads(threads)
+    if exact:
+        l_exact, truth = exact.get(timeout=600)
     (l_cpu, m_cpu, _, cpu_s), (l_dev, m_dev, counts, dev_s) = \
         runs["cpu"], runs["card"]
     if counts != per_step:
@@ -979,7 +1045,8 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
     cpu_p = dict(m_cpu.named_parameters())
     reorder_p = [dict(runs[f"cpu on {n}"][1].named_parameters())
                  for n in reorders]
-    # per tensor: (card's share / its limit, card's share, own floor)
+    # per tensor: (card's share / its limit, card's share, own floor, the
+    # card's and the CPU's shares against the exact gradient)
     rows = {}
     for name, p in m_dev.named_parameters():
         want = cpu_p[name].grad
@@ -987,26 +1054,36 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
         if not bool(torch.isfinite(got).all()):
             fail(f"{name}: non-finite gradient on the card")
         used = grad_tolerance_used(got, want)
-        # a share the CPU reaches against itself by reordering its sums
-        # is fp32 noise of this tensor in this step, not a fault of the card
-        floor = max([grad_tolerance_used(r[name].grad, want)
-                     for r in reorder_p], default=0.0)
-        rows[name] = (used / max(1.0, NOISE_MARGIN * floor), used, floor)
-    fmt = lambda names: [(n, round(rows[n][1], 3), round(rows[n][2], 3))
+        # a share the CPU reaches against itself by reordering its sums, or
+        # against the exact gradient, is fp32 noise of this tensor in this
+        # step, not a fault of the card
+        floors = [grad_tolerance_used(r[name].grad, want) for r in reorder_p]
+        vs_exact = ()
+        if exact:
+            e = truth[name]
+            vs_exact = (grad_tolerance_used(got.double(), e),
+                        grad_tolerance_used(want.double(), e))
+            floors.append(vs_exact[1])
+        floor = max(floors, default=0.0)
+        rows[name] = (used / max(1.0, NOISE_MARGIN * floor), used, floor,
+                      *vs_exact)
+    fmt = lambda names: [(n, *(round(v, 3) for v in rows[n][1:]))
                          for n in names]
     worst = sorted(rows, key=lambda n: rows[n][0], reverse=True)
     noisy = sorted((n for n in rows if NOISE_MARGIN * rows[n][2] > 1.0),
                    key=lambda n: rows[n][2], reverse=True)
-    log(f"train step gradients, share of the tolerance used (rtol "
-        f"{GRAD_FLOOR}, atol 1e-8 + {GRAD_FLOOR}*max|CPU grad|) as (tensor, "
-        f"card vs CPU, the CPU on {reorders} threads vs {threads}, largest): "
-        f"card above 1 {fmt(n for n in worst if rows[n][1] > 1.0)}; nearest "
-        f"their limit {fmt(worst[:5])}; {len(noisy)} tensors whose floor "
-        f"lifts their limit above 1, noisiest {fmt(noisy[:5])}")
+    log(f"train step {what} {img}x{img} gradients, share of the tolerance "
+        f"used (rtol {GRAD_FLOOR}, atol 1e-8 + {GRAD_FLOOR}*max|CPU grad|) "
+        f"as (tensor, card vs CPU, its floor: "
+        + ("the CPU vs float64; card vs float64, CPU vs float64" if exact
+           else f"the largest of the CPU on {reorders} threads vs {threads}")
+        + f"): card above 1 {fmt(n for n in worst if rows[n][1] > 1.0)}; "
+        f"nearest their limit {fmt(worst[:5])}; {len(noisy)} tensors whose "
+        f"floor lifts their limit above 1, noisiest {fmt(noisy[:5])}")
     if rows[worst[0]][0] > 1.0:
         fail(f"{worst[0]}: gradient uses {rows[worst[0]][1]:.3f} of its "
-             f"tolerance, past max(1, {NOISE_MARGIN} x its CPU reorder "
-             f"floor {rows[worst[0]][2]:.3f})")
+             f"tolerance, past max(1, {NOISE_MARGIN} x its CPU floor "
+             f"{rows[worst[0]][2]:.3f})")
     cpu_b = dict(m_cpu.named_buffers())
     stat_err = 0.0
     for name, b in m_dev.named_buffers():
@@ -1017,10 +1094,12 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
                      f"{e.max().item():.3e}")
             stat_err = max(stat_err, e.max().item())
     n = sum(1 for _ in m_dev.parameters())
-    log(f"train step {what} {PHASE8_IMG}x{PHASE8_IMG} b2 "
+    log(f"train step {what} {img}x{img} b2 "
         f"fp32 card vs CPU:"
-        f" loss {l_dev:.6f} vs {l_cpu:.6f}; {n} gradients within their "
-        f"tolerance or {NOISE_MARGIN}x their own reorder floor (nearest: "
+        f" loss {l_dev:.6f} vs {l_cpu:.6f}"
+        + (f" (float64 {l_exact:.6f})" if exact else "")
+        + f"; {n} gradients within their "
+        f"tolerance or {NOISE_MARGIN}x their own floor (nearest: "
         f"{worst[0]} at {rows[worst[0]][0]:.3f} of its limit); BN running "
         f"stats max abs err {stat_err:.3e}; launches {counts}; CPU step "
         f"{cpu_s:.1f} s,"
@@ -1223,7 +1302,10 @@ def legacy_kernel_cases(dev):
         "cuda", "ceigm_unet_tpu_torch/csrc/sscan_dir.cu",
         "ceigm_unet_tpu/ops/quad_scan.py:315",
         [(f"{S}x{S} D{D}", calls, sscan(S, D))
-         for S, D, calls in LEGACY_SS2D_SHAPES])}
+         for S, D, calls in LEGACY_SS2D_SHAPES]
+        # phase 27's 64x64 maps: L 256 down to 4
+        + [(f"{S}x{S} D{D} (64x64, phase 27)", 0, sscan(S, D))
+           for _, _, S, D in traj_shapes(LEGACY_SCAN_SHAPES)])}
 
 
 def scan_inputs(dev, batch, dim, N, L, softplus=True):
@@ -1694,12 +1776,18 @@ LEGACY_STEPS = [True] * 2 + [False] * 4
 
 def phase_legacy_scan2d(dev, gpu):
     """Phase 17: K8 at the tiny_0230s shapes, b2 and b48 fp32, both modes;
-    timed per unfrozen b48 legacy step."""
+    timed per unfrozen b48 legacy step; then at phase 27's b2 64x64
+    shapes."""
     r = phase_scan2d(dev, gpu, LEGACY_SCAN_SHAPES, (2, TRAIN_BATCH),
                      "tiny_0230s")
-    return {f"{k}_legacy_step": r[k] for k in ("max_abs_err", "ms",
-                                                "device_ms", "plain_ms",
-                                                "bound_ms")}
+    out = {f"{k}_legacy_step": r[k] for k in ("max_abs_err", "ms",
+                                               "device_ms", "plain_ms",
+                                               "bound_ms")}
+    # and at phase 27's b2 64x64 shapes (checked; their times not kept)
+    out["max_abs_err_trajectory_legacy"] = phase_scan2d(
+        dev, gpu, traj_shapes(LEGACY_SCAN_SHAPES), (TRAJ_BATCH,),
+        "tiny_0230s")["max_abs_err"]
+    return out
 
 
 def phase_legacy_trainer(dev, gpu):
@@ -3373,19 +3461,290 @@ def _sp_whole(dev, gpu, model, tag, name, want_launches, want_calls,
     return path
 
 
+
+# --- phase 27: training trajectories ----------------------------------------
+
+TRAJ_IMG, TRAJ_BATCH = 64, 2
+TRAJ_STEPS, TRAJ_FROZEN = 20, 2
+TRAJ_SEEDS = (SEED, SEED + 1)           # the two batches, used alternately
+TRAJ_LOSS_RTOL = 2e-4                   # per step, times 1 + step (PARITY.md)
+TRAJ_LOGITS_TOL = 5e-3                  # rtol, and atol / max|logit|
+TRAJ_BF16_LOSS, TRAJ_BF16_LOGITS = 5e-2, 0.05
+# (name, legacy, base LR, launches per unfrozen step, K8 scans per frozen
+# step, launches per eval forward, whether the CPU also runs in bf16).
+# gm_tiny steps from the CLIs' 5e-4. tiny_0230s steps from 2e-6: at 64x64
+# b2 its AdamW trajectory is chaotic in fp32 from 1e-5 up (two fp32 runs on
+# the CPU, or fp32 against float64, part by up to 3x the loss bound and
+# 6x-40x the logits bound; tools/trajectory_drift.py), so no bound could
+# tell the card's rounding from a fault there.
+TRAJ_MODELS = (
+    ("gm_tiny", False, 5e-4, PER_TRAIN_STEP, FROZEN_SCANS, PER_FORWARD,
+     True),
+    ("tiny_0230s", True, 2e-6, LEGACY_PER_STEP, LEGACY_FROZEN_SCANS,
+     LEGACY_PER_FORWARD, False))
+# the CPU runs of each model: (tag, dtype, threads); the second is the
+# first on fewer threads, its own reorder floor
+TRAJ_CPU_RUNS = (("cpu fp32", torch.float32, 2),
+                 ("cpu fp32 on 1 thread", torch.float32, 1),
+                 ("cpu bf16", torch.bfloat16, 2))
+# processes for phase 27's CPU work: at most 6 of the host's 8 cores, so
+# that the phases it runs beside keep 2
+TRAJ_POOL = 3
+
+
+def traj_shapes(shapes):
+    """``shapes`` ((tag, calls, side, D) of a 224x224 input) at TRAJ_IMG."""
+    return [(f"{S * TRAJ_IMG // IMG}x{S * TRAJ_IMG // IMG} D{D}", n,
+             S * TRAJ_IMG // IMG, D) for _, n, S, D in shapes]
+
+
+@contextlib.contextmanager
+def float64_compute():
+    """In this process, rebinds the port's casts to fp32 (``torch.float32``,
+    ``torch.float``, ``Tensor.float``) to float64, so that a model cast to
+    float64 computes every op in float64 (the drop-path masks come from
+    ``torch.rand`` in the default dtype, the same as fp32's). For the CPU
+    references run in processes of their own."""
+    f32, to_f32 = torch.float32, torch.Tensor.float
+    torch.float32 = torch.float = torch.float64
+    torch.Tensor.float = torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.float32 = torch.float = f32
+        torch.Tensor.float = to_f32
+
+
+def _trajectory(device, legacy, dtype, base_lr, per_step=None):
+    """TRAJ_STEPS steps of the training CLI's optimizer and schedule
+    (``_trainer`` from ``base_lr``) on gm_tiny (with ``legacy``,
+    tiny_0230s) built from SEED, computing in ``dtype`` with fp32
+    parameters (float64, on the CPU only: parameters cast and every op in
+    float64, :func:`float64_compute`), at TRAJ_IMG, batch TRAJ_BATCH, on the
+    synthetic batches of TRAJ_SEEDS used alternately; the encoder frozen
+    for the first TRAJ_FROZEN steps; each step's drop-path masks from a CPU
+    generator seeded with SEED + step, so every device draws the same.
+    ``per_step`` (frozen, unfrozen) launch counts are checked step by step,
+    counters reset just before and read just after. Returns the losses, the
+    final eval logits of the first batch (float64, on the CPU), the launches
+    of the steps and of that forward summed, that forward's launches, and
+    the time taken."""
+    from ceigm_unet_tpu_torch.entry import synthetic_batch
+    from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    exact = dtype == torch.float64
+    build = build_legacy_model if legacy else build_model
+    model = build(num_classes=9, enc_name="tiny_0230s" if legacy
+                  else "gm_tiny", dtype=torch.float32 if exact else dtype,
+                  seed=SEED, device=device)
+    if exact:
+        model = model.double()
+        model.dtype = dtype
+    step = _trainer(model, device, base_lr)
+    batches = [synthetic_batch(TRAJ_BATCH, TRAJ_IMG, 9, s, device)
+               for s in TRAJ_SEEDS]
+    if exact:
+        batches = [dict(b, image=b["image"].double()) for b in batches]
+    enc0 = [p.detach().clone() for p in model.encoder.parameters()]
+    built = time.perf_counter() - t0
+    losses, total, times = [], {}, []
+    with float64_compute() if exact else contextlib.nullcontext():
+        for i in range(TRAJ_STEPS):
+            frozen = i < TRAJ_FROZEN
+            _build.reset_launch_counts()
+            t1 = time.perf_counter()
+            loss = step(batches[i % 2], freeze_encoder=frozen,
+                        generator=torch.Generator().manual_seed(SEED + i))
+            losses.append(loss["loss"].item())
+            times.append((time.perf_counter() - t1) * 1e3)
+            counts = dict(_build.launch_counts)
+            if per_step is not None and counts != per_step[not frozen]:
+                fail(f"trajectory step {i}: kernel launches {counts}, "
+                     f"expected {per_step[not frozen]}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if frozen and not all(torch.equal(p, q) for p, q in zip(
+                    model.encoder.parameters(), enc0)):
+                fail(f"trajectory step {i}: the encoder moved while frozen")
+        if not all(np.isfinite(losses)):
+            fail(f"trajectory: non-finite loss in {losses}")
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            logits = model.eval()(batches[0]["image"])
+    logits = logits.to(torch.float64).cpu()
+    for k, v in _build.launch_counts.items():
+        total[k] = total.get(k, 0) + v
+    eval_counts = dict(_build.launch_counts)
+    del model, step, enc0
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    took = (f"{time.perf_counter() - t0:.1f} s: build {built:.1f} s, first "
+            f"step {times[0]:.0f} ms, then median "
+            f"{statistics.median(times[1:]):.0f} ms/step")
+    return losses, logits, total, eval_counts, took
+
+
+def _loss_shares(got, want, bound):
+    """Per step, the share of ``bound(i, want_i)`` that |got_i - want_i|
+    uses."""
+    return [abs(g - w) / bound(i, w)
+            for i, (g, w) in enumerate(zip(got, want))]
+
+
+def _logit_share(got, want, rtol, atol_frac):
+    """The share of rtol * |want| + atol_frac * max|want| that |got - want|
+    uses, at its largest element."""
+    tol = rtol * want.abs() + atol_frac * want.abs().max()
+    return ((got - want).abs() / tol).max().item()
+
+
+def _within_limits(what, checks, gpu):
+    """``checks``: {quantity: (the card's shares of its bound, the CPU's own
+    shares of it or None)}, one share per step (one for the final logits).
+    At each step the card's share must stay within max(1, NOISE_MARGIN x
+    the CPU's share at that step), and never past NOISE_MARGIN: the CPU's
+    own rounding lifts a bound at most to twice it; without CPU shares the
+    limit is the bound. Logs each quantity's largest share of its bound and
+    of its limit."""
+    parts, worst = [], 0.0
+    for quantity, (used, floor) in checks.items():
+        own = floor or [0.0] * len(used)
+        limits = [min(NOISE_MARGIN, max(1.0, NOISE_MARGIN * f)) for f in own]
+        ratio = [u / lim for u, lim in zip(used, limits)]
+        at = int(np.argmax(ratio))
+        worst = max(worst, ratio[at])
+        step = f" at step {at}" if len(used) > 1 else ""
+        cpu = (f"the CPU's own {own[at]:.3f} (largest {max(own):.3f}), "
+               f"limit {limits[at]:.3f}" if floor else "limit the bound")
+        parts.append(f"{quantity} use at most {max(used):.3f} of the bound "
+                     f"and {ratio[at]:.3f} of the limit{step} "
+                     f"({used[at]:.3f}; {cpu})")
+    log(f"trajectory {what}: {'; '.join(parts)} | {gpu}")
+    if worst > 1.0:
+        fail(f"trajectory {what}: {worst:.3f} of the limit")
+
+
+def _cpu_trajectory(legacy, dtype, base_lr, threads):
+    """:func:`_trajectory` on the CPU on ``threads`` threads, in a process
+    of its own (phase 27's pool)."""
+    torch.set_num_threads(threads)
+    return _trajectory("cpu", legacy, dtype, base_lr)
+
+
+@contextlib.contextmanager
+def trajectory_cpu_runs():
+    """Phase 27's CPU work: yields a dict whose ``"start"`` starts it, in
+    TRAJ_POOL spawned processes at the lowest priority (``os.nice(19)``),
+    so that it takes what the phases before 27 leave of the host: the
+    float64 steps of (a) on 2 threads and the trajectories of (b) on the
+    threads TRAJ_CPU_RUNS gives them; then ``"exact"`` is {name: pending}
+    and ``"runs"`` {(name, tag): pending}. The processes are stopped on
+    exit."""
+    import multiprocessing
+    jobs = {(name, tag): (legacy, dtype, lr, threads)
+            for name, legacy, lr, *_, cpu_bf16 in TRAJ_MODELS
+            for tag, dtype, threads in TRAJ_CPU_RUNS
+            if cpu_bf16 or dtype != torch.bfloat16}
+    with contextlib.ExitStack() as stack:
+        runs = {}
+
+        def start():
+            pool = stack.enter_context(multiprocessing.get_context(
+                "spawn").Pool(TRAJ_POOL, initializer=os.nice,
+                              initargs=(19,)))
+            runs["exact"] = {name: pool.apply_async(
+                _float64_step, (legacy, None, TRAJ_IMG))
+                for name, legacy, *_ in TRAJ_MODELS}
+            runs["runs"] = {key: pool.apply_async(_cpu_trajectory, args)
+                            for key, args in jobs.items()}
+        runs["start"] = start
+        yield runs
+
+
+def phase_trajectory(dev, gpu, cpu_runs):
+    """Phase 27 (see the module docstring), on the CPU work of
+    :func:`trajectory_cpu_runs` (started here if it was not yet). Returns
+    the launches of every kernel over the card's runs."""
+    if "runs" not in cpu_runs:
+        cpu_runs["start"]()
+    for name, legacy, *_ in TRAJ_MODELS:
+        phase_train_vs_cpu(dev, gpu, None, LEGACY_PER_STEP if legacy
+                           else PER_TRAIN_STEP, legacy, TRAJ_IMG,
+                           cpu_runs["exact"][name])
+    card = {}
+    for name, legacy, lr, per_step, frozen_scans, *_ in TRAJ_MODELS:
+        expect = (dict(per_step, scan2d=frozen_scans), per_step)
+        for tag, dtype in (("card fp32", torch.float32),
+                           ("card bf16", torch.bfloat16)):
+            card[name, tag] = _trajectory(dev, legacy, dtype, lr, expect)
+    cpu = {key: r.get(timeout=900)
+           for key, r in cpu_runs["runs"].items()}
+    launches = {}
+    for name, _, lr, _, _, per_eval, cpu_bf16 in TRAJ_MODELS:
+        runs = {tag: run for (n, tag), run in [*card.items(), *cpu.items()]
+                if n == name}
+        for tag in ("card fp32", "card bf16"):
+            if runs[tag][3] != per_eval:
+                fail(f"trajectory {name} {tag}: eval forward launches "
+                     f"{runs[tag][3]}, expected {per_eval}")
+            for k, v in runs[tag][2].items():
+                launches[k] = launches.get(k, 0) + v
+        for tag, (losses, _, _, _, took) in runs.items():
+            log(f"trajectory {name} {tag} from LR {lr}: {TRAJ_STEPS} losses "
+                f"{[round(v, 6) for v in losses]} ({took})")
+
+        # card fp32 against the CPU, card bf16 against card fp32, each step
+        # read against the CPU's own drift at that step: for fp32 its run on
+        # fewer threads against its run, for bf16 its bf16 run against its
+        # fp32 one
+        (lc, gc, *_), (lw, gw, *_), (lr1, gr1, *_), (lb, gb, *_) = (
+            runs[t] for t in ("card fp32", "cpu fp32", "cpu fp32 on 1 thread",
+                              "card bf16"))
+        fp32 = lambda i, w: TRAJ_LOSS_RTOL * (1 + i) * max(1.0, abs(w))
+        bf16 = lambda i, w: TRAJ_BF16_LOSS * abs(w)
+        _within_limits(f"{name} card fp32 vs CPU fp32", {
+            "losses": (_loss_shares(lc, lw, fp32),
+                       _loss_shares(lr1, lw, fp32)),
+            "final logits": (
+                [_logit_share(gc, gw, TRAJ_LOGITS_TOL, TRAJ_LOGITS_TOL)],
+                [_logit_share(gr1, gw, TRAJ_LOGITS_TOL, TRAJ_LOGITS_TOL)])},
+            gpu)
+        bf16_logits = lambda got, want: ((got - want).abs().max()
+                                         / want.abs().max()).item()
+        floors = (None, None)
+        if cpu_bf16:
+            lv, gv, *_ = runs["cpu bf16"]
+            floors = (_loss_shares(lv, lw, bf16),
+                      [bf16_logits(gv, gw) / TRAJ_BF16_LOGITS])
+        _within_limits(f"{name} card bf16 vs card fp32", {
+            "losses": (_loss_shares(lb, lc, bf16), floors[0]),
+            "final logits": ([bf16_logits(gb, gc) / TRAJ_BF16_LOGITS],
+                             floors[1])}, gpu)
+    log(f"trajectory launches over the card's runs: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from ceigm_unet_tpu_torch.ops import _build
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"device: {gpu} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    with trajectory_cpu_runs() as cpu_runs:
+        return _phases(dev, gpu, cpu_runs)
+
+
+def _phases(dev, gpu, cpu_runs) -> int:
+    """Phases 2-27 and the last two lines (see the module docstring);
+    ``cpu_runs``: phase 27's CPU work, started after phase 3."""
+    from ceigm_unet_tpu_torch.ops import _build
 
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
@@ -3401,12 +3760,19 @@ def main() -> int:
                     "forward", [(TEST_BATCH, torch.float32),
                                 (TRAIN_BATCH, torch.float32)],
                     [(TEST_BATCH, torch.float32)])
+    # phase 27's CPU runs start once phase 3 has timed the kernels, TRAJ_POOL
+    # at a time beside phases 4-26
+    cpu_runs["start"]()
     model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
     base = timed("6 throughput", phase_throughput, model, dev, gpu)
     del model
     torch.cuda.empty_cache()
     kernels["scan2d"] = timed("7 scan2d", phase_scan2d, dev, gpu)
+    # and at phase 27's b2 64x64 shapes (checked; their times not kept)
+    kernels["scan2d"]["max_abs_err_trajectory"] = timed(
+        "7 scan2d at 64x64", phase_scan2d, dev, gpu,
+        traj_shapes(TRAIN_SCAN_SHAPES), (TRAJ_BATCH,))["max_abs_err"]
     timed("8 train step vs CPU", phase_train_vs_cpu, dev, gpu)
     training, base_step_ms = timed("9 trainer", phase_trainer, dev, gpu)
     kernels.update(timed("10 legacy kernels", phase_legacy_kernels, dev,
@@ -3437,6 +3803,8 @@ def main() -> int:
     sp_model = timed("25 sp model", phase_sp_model, dev, gpu)
     sp_legacy, sp_legacy_ref = timed("26 sp legacy", phase_sp_legacy, dev,
                                      gpu)
+    trajectory = timed("27 training trajectories", phase_trajectory, dev,
+                       gpu, cpu_runs)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -3448,6 +3816,9 @@ def main() -> int:
                  "dysample_grid_sample", "lgag_gate"):
         kernels[name]["launches_sp_model"] = sp_model.get(name, 0)
     kernels["scan_rows"]["launches_sp_legacy"] = sp_legacy["scan_rows"]
+    # the kernels the two training paths and their eval forwards run
+    for name in [*PER_FORWARD, "scan2d", "sscan_dir"]:
+        kernels[name]["launches_trajectory"] = trajectory.get(name, 0)
     kernels["sscan_dir"]["launches_sp_legacy_reference"] = \
         sp_legacy_ref["sscan_dir"]
     # each kernel's launches on its own main path: gm_tiny serving for
@@ -3472,6 +3843,7 @@ def main() -> int:
            or k.get("launches_sp_block") == 0
            or k.get("launches_sp_model") == 0
            or k.get("launches_sp_legacy") == 0
+           or k.get("launches_trajectory") == 0
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

@@ -290,10 +290,10 @@ def test_resume_restores_what_jax_restores(acdc_dir, tmp_path, monkeypatch):
 
 # --- the pretrained encoder --------------------------------------------------------
 
-def _upstream(model):
+def _upstream(model, seed=3):
     """A classification checkpoint's state_dict for the encoder's weights
     (new values), with the classifier's head and final norm."""
-    gen = torch.Generator().manual_seed(3)
+    gen = torch.Generator().manual_seed(seed)
     sd = {k: (torch.randn(v.shape, generator=gen) if v.is_floating_point()
               else v.clone())
           for k, v in model.encoder.gm_encoder.state_dict().items()}
@@ -330,10 +330,49 @@ def test_load_pretrained_encoder_changes_only_the_encoder(tmp_path):
             assert torch.equal(v, sd[k[len("encoder.gm_encoder."):]]), k
         else:
             assert torch.equal(v, before[k]), k
-    # a key the encoder lacks is refused
+    # a key the encoder lacks is not loaded, as the JAX package's converter
+    # reads only the keys it maps; the encoder takes every other tensor
+    sd = _upstream(model, seed=4)
     sd["blockX.weight"] = torch.zeros(1)
     torch.save(sd, path)
-    with pytest.raises(RuntimeError, match="blockX"):
+    loop.load_pretrained_encoder(model, str(path),
+                                 loop.setup_logger(str(tmp_path), "pre"))
+    enc = model.encoder.gm_encoder.state_dict()
+    assert all(torch.equal(v, sd[k]) for k, v in enc.items())
+    # a key the encoder needs is missing: raises, naming it
+    del sd["block2.0.norm2.weight"]
+    torch.save(sd, path)
+    with pytest.raises(KeyError, match=r"block2\.0\.norm2\.weight"):
+        loop.load_pretrained_encoder(model, str(path),
+                                     loop.setup_logger(str(tmp_path), "pre"))
+
+
+def test_load_pretrained_encoder_matches_jax_converter(tmp_path):
+    """A checkpoint with keys the encoder lacks (and no BatchNorm
+    ``num_batches_tracked``, which JAX never reads) gives the port's encoder
+    the weights JAX's ``convert_groupmamba_state_dict`` reads from it; a
+    tensor of another shape still raises."""
+    model = build_model(enc_name="gm_test", device="cpu")
+    sd = {k: v for k, v in _upstream(model).items()
+          if not k.endswith("num_batches_tracked")}
+    sd.update({"layers.3.downsample.extra.weight": torch.ones(3),
+               "blockX.weight": torch.zeros(1)})
+    path = tmp_path / "groupmamba_tiny.pth"
+    torch.save({"state_dict": sd}, path)
+    loop.load_pretrained_encoder(model, str(path),
+                                 loop.setup_logger(str(tmp_path), "pre"))
+    want = jtorch_import.convert_groupmamba_state_dict(
+        jtorch_import.remap_pretrained_groupmamba_keys(sd),
+        depths=GM_TEST_DEPTHS)
+    got = jtorch_import.convert_groupmamba_state_dict(
+        model.encoder.gm_encoder.state_dict(), depths=GM_TEST_DEPTHS)
+    flat = lambda t: jax.tree_util.tree_flatten_with_path(t)[0]
+    assert [p for p, _ in flat(got)] == [p for p, _ in flat(want)]
+    for (path_, a), (_, b) in zip(flat(got), flat(want)):
+        np.testing.assert_array_equal(a, b, err_msg=str(path_))
+    sd["norm1.weight"] = torch.zeros(3)
+    torch.save(sd, path)
+    with pytest.raises(RuntimeError, match="norm1.weight"):
         loop.load_pretrained_encoder(model, str(path),
                                      loop.setup_logger(str(tmp_path), "pre"))
 

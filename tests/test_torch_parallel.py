@@ -416,6 +416,27 @@ def test_dryrun_refuses_more_ranks_than_cards():
         dryrun_multichip(2, device="cuda")
 
 
+def test_dryrun_command_line(monkeypatch, capsys):
+    """``python -m ceigm_unet_tpu_torch.parallel.dryrun [N] [--device]``
+    runs ``run(N, device)``, 8 ranks on the cards by default as the JAX dry
+    run's, and prints the JAX dry run's OK line; a failed check raises
+    before it."""
+    calls = []
+    monkeypatch.setattr(dryrun, "run", lambda n, device: calls.append(
+        (n, device)))
+    dryrun.main(["2", "--device", "cpu"])
+    dryrun.main([])
+    assert calls == [(2, "cpu"), (8, "cuda")]
+    assert capsys.readouterr().out == "dryrun_multichip: OK\n" * 2
+
+    def failed(n, device):
+        raise AssertionError("loss 1.0 in one process, 2.0 in n")
+    monkeypatch.setattr(dryrun, "run", failed)
+    with pytest.raises(AssertionError, match="in one process"):
+        dryrun.main(["2", "--device", "cpu"])
+    assert capsys.readouterr().out == ""
+
+
 # --- the ring scan: 4 ranks against JAX's shard_map --------------------------
 
 @pytest.fixture(scope="module")
