@@ -86,18 +86,20 @@ def synthetic_batch(batch: int, size: int = 224, num_classes: int = 9,
 def train_entry(device: Union[str, torch.device] = "cuda",
                 dtype: torch.dtype = torch.float32, batch: int = 48,
                 seed: int = 0, dwconv: str = "library",
-                dysample_grouped: bool = True
+                dysample_grouped: bool = True, enc_name: Optional[str] = None
                 ) -> Tuple[MSVMUNet, Callable, Dict[str, torch.Tensor]]:
-    """(model, step, batch): the seeded gm_tiny model in training mode on
-    ``device`` computing in ``dtype`` (parameters fp32), its training step
-    with the Synapse recipe (AdamW 5e-4 / wd 1e-3, per-epoch cosine to 1e-6
-    over 300 epochs, DiceCE 0.4/0.6), and one seeded synthetic batch.
+    """(model, step, batch): the seeded model (the Synapse recipe's
+    gm_tiny, or the GroupMamba configuration ``enc_name``) in training mode
+    on ``device`` computing in ``dtype`` (parameters fp32), its training
+    step with the Synapse recipe (AdamW 5e-4 / wd 1e-3, per-epoch cosine to
+    1e-6 over 300 epochs, DiceCE 0.4/0.6), and one seeded synthetic batch.
     ``step(batch, freeze_encoder, generator)`` returns {"loss"}; the
     generator draws the decoder's stochastic-depth masks. ``dwconv`` and
     ``dysample_grouped`` select kernel routes as in ``build_model``
     (``quant_scan`` is inference-only)."""
     cfg = SYNAPSE_CONFIG
-    model = build_model(num_classes=cfg.num_classes, enc_name=cfg.enc_name,
+    model = build_model(num_classes=cfg.num_classes,
+                        enc_name=enc_name or cfg.enc_name,
                         dtype=dtype, device=device, seed=seed, dwconv=dwconv,
                         dysample_grouped=dysample_grouped).train()
     optimizer = make_optimizer(param_groups(model), cfg.weight_decay)

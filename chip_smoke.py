@@ -284,7 +284,8 @@ exits non-zero without its last line:
    for gm_tiny); and on the CPU, (ii) in fp32 on 2 threads, (iii) in fp32
    on 1 thread (its reorder floor), and for gm_tiny (v) in bf16, each run
    (and each float64 step of (a)) in one of 3 spawned processes at the
-   lowest priority, started after phase 3: beside phases 4-26. Fails
+   lowest priority, started after phase 3: beside phases 4-26 (phase
+   28's CPU references queue behind them in the same processes). Fails
    unless: every loss is finite; the encoder is bitwise unchanged through
    the frozen steps; card fp32 vs CPU fp32: each step's loss within 2e-4 *
    (1 + step) relative and the final eval logits at rtol 5e-3, atol 5e-3 *
@@ -294,6 +295,32 @@ exits non-zero without its last line:
    share of it the CPU's own drift uses at that step ((iii) against (ii);
    (v) against (ii)), never past 2x. Prints every run's 20 losses and each
    bound's largest share used.
+28. gm_small and gm_base (the JAX package's two other GroupMamba
+   configurations, at upstream GroupMamba-S's and -B's widths; 9 classes,
+   seeded random weights at full width and depth; launch counts from
+   ``GROUPMAMBA_CONFIGS``' depths, K1 once per encoder block and 7 decoder
+   blocks: 33 and 40): (a) every kernel against its plain version at
+   gm_base's 224x224 shapes (K1 at D 24/48/106/128, with a long-memory and a
+   contiguous case and its 64x64 maps; K3's GEMMs at (K, N) (424, 1696),
+   (192, 768), (96, 384) and back, the stencil at HID 1696/768/384; K4 at
+   C 512/424/192 and a grid far outside [-1, 1]; K5 at C 424/192/96; the
+   route kernels K6/K7, K13 (both modes) and K14 at its per-group and
+   quad-block widths) at phase 3's batches, dtypes and tolerances, timed
+   per b128 bf16 and per b32 fp32 forward beside the bound and the library
+   call; K8 in both modes at gm_base's four shapes at b2 and b48 and its
+   64x64 maps (phase 7's check); (b) for each configuration phases 4-6: b2
+   fp32 card vs CPU (phase 4's tolerance) with the launches of one forward,
+   b2 bf16 vs the fp32 CPU logits, the b128 bf16 throughput, and
+   ``predict_volume`` over phase 5's volumes with its launches; (c)
+   gm_base's training: phase 27 (a)'s one-step check at 64x64 b2 (a float64
+   CPU step as the exact reference; K8 80 launches), then
+   ``entry.train_entry(enc_name="gm_base")``, 2 frozen + 3 unfrozen steps
+   in fp32 (TF32 off; at b32, since b48 needs more than the card's memory)
+   and in bf16 at b48: finite losses that fall, the encoder bitwise
+   unchanged while frozen, each step's launches (K8 14 per frozen step, 80
+   per unfrozen one), ms/step and peak memory. The CPU references (both
+   b2 fp32 forwards, gm_base's fp32 and float64 64x64 steps) run in phase
+   27's processes.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point with its launches on its own main path (those of phases 3,
@@ -313,7 +340,11 @@ also with ``launches_sp_model``, their launches on phase 25 (b)'s path;
 K11 also with ``launches_sp_legacy``, its launches on phase 26 (b)'s path,
 and K10 with ``launches_sp_legacy_reference``, its launches in phase 26
 (a)'s unsharded forward; K1-K5, K8 and K10 also with
-``launches_trajectory``, their launches over phase 27's card runs);
+``launches_trajectory``, their launches over phase 27's card runs;
+K1-K5 also with ``launches_gm_small`` and ``launches_gm_base``, and K8 with
+``launches_gm_base``, their launches on phase 28's paths (each
+configuration's serving, and gm_base's two trainers), and every kernel
+phase 28 (a) checks with ``at_gm_base``, its errors and times there);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -431,10 +462,12 @@ def quad_params(rnd, dev, K, D, long_memory=False):
             1 + rnd((K, D), 0.1), rnd((K, D), 0.1)]
 
 
-def kernel_cases(dev):
+def kernel_cases(dev, enc_name="gm_tiny", phase64=27):
     """name -> (route, source, replaces, [(shape tag, calls per forward,
-    make(batch, dtype) -> Case)])."""
+    make(batch, dtype) -> Case)]) at the shapes of a 224x224 forward of
+    ``enc_name``, and K1 at those of the 64x64 input of phase ``phase64``."""
     import torch.nn.functional as F
+    from ceigm_unet_tpu_torch.models.emcad import EMCAD
     from ceigm_unet_tpu_torch.ops import ffn, grid_sample, quad_scan, tapconv
     gen = torch.Generator().manual_seed(SEED)
 
@@ -555,24 +588,29 @@ def kernel_cases(dev):
                         n * (105 * C2 + 10 + C), "fp32")
         return make
 
-    ffn_blocks = [(14, 348, 1392, 3), (28, 128, 512, 2), (56, 64, 256, 2)]
+    stages = model_stages(enc_name)
+    # the decoder's CustomFfn blocks, coarse to fine: (side, C, hidden 4C,
+    # blocks); gm_tiny (14, 348, 1392, 3), (28, 128, 512, 2), (56, 64, 256, 2)
+    ffn_blocks = [(S, C, 4 * C, n) for (S, C, _), n in zip(
+        stages[2::-1], EMCAD.FRONT_DEPTHS)]
+    S1, D1 = stages[0][0], stages[0][1] // 4
+    S3, C3 = stages[2][:2]
     src = "ceigm_unet_tpu_torch/csrc/"
     return {
         "quad_scan_ln": ("cuda", src + "quad_scan_ln.cu",
-                         "ceigm_unet_tpu/ops/quad_scan.py:542", [
-                             ("56x56 D16", 5, quad(56, 56, 16)),
-                             ("28x28 D32", 6, quad(28, 28, 32)),
-                             ("14x14 D87", 12, quad(14, 14, 87)),
-                             ("7x7 D112", 3, quad(7, 7, 112)),
-                             ("56x56 D16, contiguous (B, K, L, D) operands"
-                              " (not on the path)", 0,
-                              quad(56, 56, 16, model_layout=False)),
-                             ("56x56 D16, long memory (not on the path)", 0,
-                              quad(56, 56, 16, long_memory=True))]
-                         # phase 27's 64x64 maps: L 256 down to 4
-                         + [(f"{S}x{S} D{D} (64x64, phase 27)", 0,
+                         "ceigm_unet_tpu/ops/quad_scan.py:542",
+                         [(tag, n, quad(S, S, D))
+                          for tag, n, S, D in scan_shapes(enc_name)]
+                         + [(f"{S1}x{S1} D{D1}, contiguous (B, K, L, D) "
+                             "operands (not on the path)", 0,
+                             quad(S1, S1, D1, model_layout=False)),
+                            (f"{S1}x{S1} D{D1}, long memory (not on the "
+                             "path)", 0, quad(S1, S1, D1, long_memory=True))]
+                         # the 64x64 maps: L 256 down to 4
+                         + [(f"{S}x{S} D{D} (64x64, phase {phase64})", 0,
                              quad(S, S, D))
-                            for _, _, S, D in traj_shapes(TRAIN_SCAN_SHAPES)]),
+                            for _, _, S, D in traj_shapes(
+                                scan_shapes(enc_name))]),
         "cffn_gemm": ("cuda", src + "cffn_gemm.cu",
                       "ceigm_unet_tpu/ops/ffn_pallas.py:114",
                       [(f"fc1 {s}x{s} {c}->{h}", n, gemm(s * s, c, h, False))
@@ -584,18 +622,17 @@ def kernel_cases(dev):
                                 [(f"{s}x{s} HID{h}", n, stencil(s, s, h))
                                  for s, c, h, n in ffn_blocks]),
         "dysample_grid_sample": ("cuda", src + "grid_sample.cu",
-                                 "ceigm_unet_tpu/ops/grid_sample.py:432", [
-                                     ("7->14 C448", 1, gsample(7, 7, 448)),
-                                     ("14->28 C348", 1, gsample(14, 14, 348)),
-                                     ("28->56 C128", 1, gsample(28, 28, 128)),
-                                     ("14->28 C348, grid far outside [-1, 1]"
-                                      " (not on the path)", 0,
-                                      gsample(14, 14, 348, 4.0))]),
+                                 "ceigm_unet_tpu/ops/grid_sample.py:432",
+                                 # each DySample's input: stages 4, 3, 2
+                                 [(f"{S}->{2 * S} C{C}", 1, gsample(S, S, C))
+                                  for S, C, _ in stages[:0:-1]]
+                                 + [(f"{S3}->{2 * S3} C{C3}, grid far outside"
+                                     " [-1, 1] (not on the path)", 0,
+                                     gsample(S3, S3, C3, 4.0))]),
         "lgag_gate": ("cuda", src + "lgag.cu",
-                      "ceigm_unet_tpu/ops/tapconv.py:117", [
-                          ("14x14 C348", 1, lgag(14, 14, 348)),
-                          ("28x28 C128", 1, lgag(28, 28, 128)),
-                          ("56x56 C64", 1, lgag(56, 56, 64))]),
+                      "ceigm_unet_tpu/ops/tapconv.py:117",
+                      [(f"{S}x{S} C{C}", 1, lgag(S, S, C))
+                       for S, C, _ in stages[2::-1]]),
     }
 
 
@@ -696,11 +733,29 @@ def phase_kernels(dev, gpu, kernels, per="forward", extra=(), timed=()):
 
 # --- phases 4-6 -------------------------------------------------------------
 
-# launches of one 224x224 gm_tiny forward: 26 quad blocks (19 encoder, 7
-# decoder); 7 CustomFfn (2 GEMMs + the stencil between them each); 3
-# DySample; 3 LGAG
-PER_FORWARD = {"quad_scan_ln": 26, "cffn_gemm": 14, "cffn_dw3_inception7": 7,
-               "dysample_grid_sample": 3, "lgag_gate": 3}
+def model_stages(enc_name="gm_tiny"):
+    """(side, channels, quad blocks) of each stage of a 224x224 forward of
+    the GroupMamba configuration ``enc_name``: its encoder blocks there and
+    EMCAD's Front blocks (3 at 14x14, 2 at 28x28, 2 at 56x56). gm_tiny:
+    (56, 64, 5), (28, 128, 6), (14, 348, 12), (7, 448, 3)."""
+    from ceigm_unet_tpu_torch.models.emcad import EMCAD
+    from ceigm_unet_tpu_torch.models.groupmamba import GROUPMAMBA_CONFIGS
+    cfg = GROUPMAMBA_CONFIGS[enc_name]
+    front = (*EMCAD.FRONT_DEPTHS[::-1], 0)
+    return [(IMG // 4 >> i, c, d + f) for i, (c, d, f) in enumerate(
+        zip(cfg["embed_dims"], cfg["depths"], front))]
+
+
+def per_forward(enc_name="gm_tiny"):
+    """Launches of one 224x224 forward: a quad block per encoder block and
+    7 decoder ones (gm_tiny 19 + 7); 7 CustomFfn (2 GEMMs + the stencil
+    between them each); 3 DySample; 3 LGAG."""
+    return {"quad_scan_ln": sum(n for *_, n in model_stages(enc_name)),
+            "cffn_gemm": 14, "cffn_dw3_inception7": 7,
+            "dysample_grid_sample": 3, "lgag_gate": 3}
+
+
+PER_FORWARD = per_forward()
 
 
 def check_counts(counts, forwards: int, what: str, per_forward=PER_FORWARD):
@@ -709,23 +764,46 @@ def check_counts(counts, forwards: int, what: str, per_forward=PER_FORWARD):
         fail(f"{what}: kernel launches {dict(counts)}, expected {want}")
 
 
-def phase_model(dev, routes=None, per_forward=PER_FORWARD, what="gm_tiny",
-                fp32_tol=None):
-    """gm_tiny built with ``routes`` (build_model's route arguments) at b2
-    fp32 on the card against the CPU (phase 4's tolerance, or
-    ``fp32_tol`` * max|logit| alone), the launches of one forward, then the
-    bf16 forward against the fp32 CPU logits. Returns the model in bf16 on
-    the card, and the input and CPU logits."""
+def model_input():
+    """Phase 4's b2 224x224 input."""
+    return torch.randn((2, IMG, IMG, 1),
+                       generator=torch.Generator().manual_seed(SEED + 1))
+
+
+def _cpu_logits(enc_name, threads=2):
+    """Phase 4's CPU reference for ``enc_name`` (no routes): the fp32
+    logits of :func:`model_input` on ``threads`` threads, in a process of
+    its own (phase 27's pool), and the forward's seconds."""
     from ceigm_unet_tpu_torch.models import build_model
-    from ceigm_unet_tpu_torch.ops import _build
-    model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
-                        device="cpu", **(routes or {}))
-    x = torch.randn((2, IMG, IMG, 1),
-                    generator=torch.Generator().manual_seed(SEED + 1))
+    torch.set_num_threads(threads)
+    model = build_model(num_classes=9, enc_name=enc_name, seed=SEED,
+                        device="cpu")
     t0 = time.perf_counter()
     with torch.no_grad():
-        want = model(x)
-    cpu_s = time.perf_counter() - t0
+        want = model(model_input())
+    return want, time.perf_counter() - t0
+
+
+def phase_model(dev, routes=None, per_forward=PER_FORWARD, what="gm_tiny",
+                fp32_tol=None, enc_name="gm_tiny", cpu=None):
+    """``enc_name`` built with ``routes`` (build_model's route arguments)
+    at b2 fp32 on the card against the CPU (phase 4's tolerance, or
+    ``fp32_tol`` * max|logit| alone; with ``cpu``, the pending result of
+    :func:`_cpu_logits`, the CPU's logits come from there), the launches of
+    one forward, then the bf16 forward against the fp32 CPU logits. Returns
+    the model in bf16 on the card, and the input and CPU logits."""
+    from ceigm_unet_tpu_torch.models import build_model
+    from ceigm_unet_tpu_torch.ops import _build
+    model = build_model(num_classes=9, enc_name=enc_name, seed=SEED,
+                        device="cpu", **(routes or {}))
+    x = model_input()
+    if cpu is None:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = model(x)
+        cpu_s = time.perf_counter() - t0
+    else:
+        want, cpu_s = cpu.get(timeout=900)
     model.to(dev)
     _build.reset_launch_counts()
     with torch.no_grad():
@@ -743,7 +821,8 @@ def phase_model(dev, routes=None, per_forward=PER_FORWARD, what="gm_tiny",
              f"{err:.3e}, max|logit| {scale:.3e}")
     log(f"model {what} 224x224 b2 fp32: card vs CPU max abs err {err:.3e} "
         f"(max|logit| {scale:.3e}, tol rtol {rtol} atol {atol}*max); "
-        f"launches {dict(_build.launch_counts)}; CPU forward {cpu_s:.1f} s")
+        f"launches {dict(_build.launch_counts)}; CPU forward {cpu_s:.1f} s"
+        + (" (in phase 27's pool)" if cpu is not None else ""))
     model.dtype = torch.bfloat16
     with torch.no_grad():
         got = model(x.to(dev))
@@ -842,14 +921,28 @@ def phase_throughput(model, dev, gpu, what="gm_tiny"):
 # --- phases 7-9: training ---------------------------------------------------
 
 TRAIN_BATCH = 48
-# (tag, quad blocks at that shape in gm_tiny 224x224, side, D per group):
-# each block's backward runs K8 twice (h again, then the adjoint)
-TRAIN_SCAN_SHAPES = [("56x56 D16", 5, 56, 16), ("28x28 D32", 6, 28, 32),
-                     ("14x14 D87", 12, 14, 87), ("7x7 D112", 3, 7, 112)]
-# launches of one unfrozen gm_tiny train step; a frozen step runs no
-# encoder backward, so only the 7 decoder blocks' 14 scans
-PER_TRAIN_STEP = {"quad_scan_ln": 26, "scan2d": 52, "cffn_gemm": 14,
-                  "cffn_dw3_inception7": 7, "dysample_grid_sample": 3}
+
+
+def scan_shapes(enc_name="gm_tiny"):
+    """(tag, quad blocks at that shape in a 224x224 forward, side, D per
+    group) of ``enc_name``: each block's backward runs K8 twice (h again,
+    then the adjoint)."""
+    return [(f"{S}x{S} D{C // 4}", n, S, C // 4)
+            for S, C, n in model_stages(enc_name)]
+
+
+def per_train_step(enc_name="gm_tiny"):
+    """Launches of one unfrozen train step: the forward's but LGAG (its
+    train-mode BatchNorm runs in PyTorch), and K8 twice per quad block."""
+    per = per_forward(enc_name)
+    del per["lgag_gate"]
+    return dict(per, scan2d=2 * per["quad_scan_ln"])
+
+
+TRAIN_SCAN_SHAPES = scan_shapes()
+PER_TRAIN_STEP = per_train_step()
+# a frozen step runs no encoder backward, so only the 7 decoder blocks' 14
+# scans
 FROZEN_SCANS = 14
 PHASE8_IMG = 224
 # biases that feed a train-mode BatchNorm (LGAG's six branch convs and its
@@ -863,15 +956,15 @@ BF16_GRAD_COSINE = 0.9
 
 
 def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
-                 what="gm_tiny"):
+                 what="gm_tiny", layout=None):
     """K8 against its plain version at each of ``shapes`` ((tag, calls per
     unfrozen step, side, D)) at each of ``batches``, both modes, fp32
     (TF32 off), on contiguous operands and in the layout the backward hands
-    it (``kernel_ab.MODEL_LAYOUT``), and on a long-memory case; timed at
-    the last batch through the wrapper in the model's layout (what the
-    path runs) with the host in the loop (``ms``) and as device time
-    (``device_ms``), beside the plain version. Returns the kernel's entry
-    for the kernels line, and the per-step sums."""
+    it (``kernel_ab.MODEL_LAYOUT[layout or what]``), and on a long-memory
+    case; timed at the last batch through the wrapper in the model's layout
+    (what the path runs) with the host in the loop (``ms``) and as device
+    time (``device_ms``), beside the plain version. Returns the kernel's
+    entry for the kernels line, and the per-step sums."""
     from ceigm_unet_tpu_torch.kernel_ab import MODEL_LAYOUT, device_time
     from ceigm_unet_tpu_torch.ops import quad_scan
     gen = torch.Generator().manual_seed(SEED)
@@ -882,7 +975,7 @@ def phase_scan2d(dev, gpu, shapes=TRAIN_SCAN_SHAPES, batches=(TRAIN_BATCH,),
 
     def check(a, b, S, kern, plain, adjoint):
         am, bm = [t.permute(o).contiguous().permute(o) for t, o in
-                  zip((a, b), MODEL_LAYOUT[what][adjoint])]
+                  zip((a, b), MODEL_LAYOUT[layout or what][adjoint])]
         e = 0.0
         for dirs in ((1, 2, 3, 4), (4, 3, 2, 1)):
             want = plain(a, b, S, S, dirs)
@@ -966,27 +1059,27 @@ def grad_tolerance_used(got, want) -> float:
     return ((got - want).abs() / tol).max().item()
 
 
-def _step_model(legacy, routes, device, img):
-    """Phase 8's model (gm_tiny built with ``routes``; with ``legacy``
-    tiny_0230s), its ``_trainer`` and batch, at ``img``."""
+def _step_model(legacy, routes, device, img, enc_name="gm_tiny"):
+    """Phase 8's model (``enc_name`` built with ``routes``; with ``legacy``
+    tiny_0230s) and batch, at ``img``."""
     from ceigm_unet_tpu_torch.entry import synthetic_batch
     from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
     if legacy:
         model = build_legacy_model(num_classes=9, enc_name="tiny_0230s",
                                    seed=SEED, device=device)
     else:
-        model = build_model(num_classes=9, enc_name="gm_tiny", seed=SEED,
+        model = build_model(num_classes=9, enc_name=enc_name, seed=SEED,
                             device=device, **(routes or {}))
     return model, synthetic_batch(2, img, 9, SEED, "cpu")
 
 
-def _float64_step(legacy, routes, img, threads=2):
+def _float64_step(legacy, routes, img, threads=2, enc_name="gm_tiny"):
     """The exact reference of :func:`phase_train_vs_cpu`: its step on the
     CPU in float64 (:func:`float64_compute`) on ``threads`` threads, in a
     process of its own (phase 27's pool), from the same fp32 weights cast.
     Returns the loss and every gradient."""
     torch.set_num_threads(threads)
-    model, batch = _step_model(legacy, routes, "cpu", img)
+    model, batch = _step_model(legacy, routes, "cpu", img, enc_name)
     model = model.double()
     model.dtype = torch.float64
     step = _trainer(model, "cpu")
@@ -997,11 +1090,36 @@ def _float64_step(legacy, routes, img, threads=2):
     return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
 
+def _step(legacy, routes, device, img, enc_name="gm_tiny"):
+    """One unfrozen step of :func:`_step_model`'s model with its
+    ``_trainer`` on ``device``, launch counters reset just before and read
+    just after: (loss, {parameter: gradient}, {BN running statistic:
+    value}, launches, seconds)."""
+    from ceigm_unet_tpu_torch.ops import _build
+    model, batch = _step_model(legacy, routes, device, img, enc_name)
+    step = _trainer(model, device)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = step({k: v.to(device) for k, v in batch.items()},
+                generator=torch.Generator().manual_seed(SEED))["loss"]
+    return (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+            {n: b for n, b in model.named_buffers() if "running" in n},
+            dict(_build.launch_counts), time.perf_counter() - t0)
+
+
+def _cpu_step(enc_name, img, threads=2):
+    """:func:`phase_train_vs_cpu`'s CPU fp32 step of ``enc_name`` on
+    ``threads`` threads, in a process of its own (phase 27's pool)."""
+    torch.set_num_threads(threads)
+    return _step(False, None, "cpu", img, enc_name)
+
+
 def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
-                       legacy=False, img=PHASE8_IMG, exact=None):
-    """One unfrozen gm_tiny train step (fp32, TF32 off, b2 at ``img``; the
-    model built with ``routes``, launching ``per_step``; with ``legacy`` the
-    legacy tiny_0230s model instead) on the card
+                       legacy=False, img=PHASE8_IMG, exact=None,
+                       enc_name="gm_tiny", cpu=None):
+    """One unfrozen train step of ``enc_name`` (fp32, TF32 off, b2 at
+    ``img``; the model built with ``routes``, launching ``per_step``; with
+    ``legacy`` the legacy tiny_0230s model instead) on the card
     and on the CPU from the same weights, batch and drop-path masks (one
     seeded CPU generator on each side): loss, every gradient, the BN
     running statistics, and the card's launches. The CPU step runs again
@@ -1011,53 +1129,47 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
     :func:`_float64_step` for the same model and size), the float64 step
     takes the place of the runs on fewer threads, and the floor is how far
     the CPU's fp32 gradient lies from that exact one: the CPU's reordered
-    runs may round alike, and then measure nothing."""
-    from ceigm_unet_tpu_torch.ops import _build
-    what = "tiny_0230s" if legacy else f"gm_tiny {routes or ''}"
+    runs may round alike, and then measure nothing. With ``cpu`` (the
+    pending result of :func:`_cpu_step`), the CPU's fp32 step comes from
+    there."""
+    what = "tiny_0230s" if legacy else f"{enc_name} {routes or ''}"
     threads = torch.get_num_threads()
     reorders = [] if exact else sorted(
         {max(1, threads // 2), max(1, threads // 4), 1} - {threads},
         reverse=True)
     runs, truth = {}, {}
     for tag, device, n_threads in (
-            [("cpu", "cpu", threads)]
+            ([] if cpu else [("cpu", "cpu", threads)])
             + [(f"cpu on {n}", "cpu", n) for n in reorders]
             + [("card", dev, threads)]):
         torch.set_num_threads(n_threads)
-        model, batch = _step_model(legacy, routes, device, img)
-        step = _trainer(model, device)
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss = step({k: v.to(device) for k, v in batch.items()},
-                    generator=torch.Generator().manual_seed(SEED))["loss"]
-        runs[tag] = (loss.item(), model, dict(_build.launch_counts),
-                     time.perf_counter() - t0)
+        runs[tag] = _step(legacy, routes, device, img, enc_name)
     torch.set_num_threads(threads)
+    if cpu:
+        runs["cpu"] = cpu.get(timeout=900)
     if exact:
-        l_exact, truth = exact.get(timeout=600)
-    (l_cpu, m_cpu, _, cpu_s), (l_dev, m_dev, counts, dev_s) = \
+        l_exact, truth = exact.get(timeout=900)
+    (l_cpu, cpu_g, cpu_b, _, cpu_s), (l_dev, dev_g, dev_b, counts, dev_s) = \
         runs["cpu"], runs["card"]
     if counts != per_step:
         fail(f"one train step: kernel launches {counts}, expected "
              f"{per_step}")
     if not abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu):
         fail(f"train-step loss on the card {l_dev} vs the CPU {l_cpu}")
-    cpu_p = dict(m_cpu.named_parameters())
-    reorder_p = [dict(runs[f"cpu on {n}"][1].named_parameters())
-                 for n in reorders]
+    reorder_g = [runs[f"cpu on {n}"][1] for n in reorders]
     # per tensor: (card's share / its limit, card's share, own floor, the
     # card's and the CPU's shares against the exact gradient)
     rows = {}
-    for name, p in m_dev.named_parameters():
-        want = cpu_p[name].grad
-        got = p.grad.cpu()
+    for name, grad in dev_g.items():
+        want = cpu_g[name]
+        got = grad.cpu()
         if not bool(torch.isfinite(got).all()):
             fail(f"{name}: non-finite gradient on the card")
         used = grad_tolerance_used(got, want)
         # a share the CPU reaches against itself by reordering its sums, or
         # against the exact gradient, is fp32 noise of this tensor in this
         # step, not a fault of the card
-        floors = [grad_tolerance_used(r[name].grad, want) for r in reorder_p]
+        floors = [grad_tolerance_used(r[name], want) for r in reorder_g]
         vs_exact = ()
         if exact:
             e = truth[name]
@@ -1084,16 +1196,14 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
         fail(f"{worst[0]}: gradient uses {rows[worst[0]][1]:.3f} of its "
              f"tolerance, past max(1, {NOISE_MARGIN} x its CPU floor "
              f"{rows[worst[0]][2]:.3f})")
-    cpu_b = dict(m_cpu.named_buffers())
     stat_err = 0.0
-    for name, b in m_dev.named_buffers():
-        if "running" in name:
-            e = (b.cpu() - cpu_b[name]).abs()
-            if bool((e > 1e-5 + 1e-4 * cpu_b[name].abs()).any()):
-                fail(f"{name}: running statistic differs from the CPU by "
-                     f"{e.max().item():.3e}")
-            stat_err = max(stat_err, e.max().item())
-    n = sum(1 for _ in m_dev.parameters())
+    for name, b in dev_b.items():
+        e = (b.cpu() - cpu_b[name]).abs()
+        if bool((e > 1e-5 + 1e-4 * cpu_b[name].abs()).any()):
+            fail(f"{name}: running statistic differs from the CPU by "
+                 f"{e.max().item():.3e}")
+        stat_err = max(stat_err, e.max().item())
+    n = len(dev_g)
     log(f"train step {what} {img}x{img} b2 "
         f"fp32 card vs CPU:"
         f" loss {l_dev:.6f} vs {l_cpu:.6f}"
@@ -1102,9 +1212,9 @@ def phase_train_vs_cpu(dev, gpu, routes=None, per_step=PER_TRAIN_STEP,
         f"tolerance or {NOISE_MARGIN}x their own floor (nearest: "
         f"{worst[0]} at {rows[worst[0]][0]:.3f} of its limit); BN running "
         f"stats max abs err {stat_err:.3e}; launches {counts}; CPU step "
-        f"{cpu_s:.1f} s,"
-        f" card step {dev_s:.1f} s (first, with warm-up) | {gpu}")
-    del m_cpu, m_dev, runs
+        f"{cpu_s:.1f} s" + (" (in phase 27's pool)" if cpu else "")
+        + f", card step {dev_s:.1f} s (first, with warm-up) | {gpu}")
+    del runs
 
 
 def watch_dead_relus(model, dead: set) -> list:
@@ -1129,33 +1239,39 @@ def _flat_grad(model):
     return torch.cat([p.grad.float().reshape(-1) for p in model.parameters()])
 
 
-def _train_run(dev, dtype, frozen_flags, routes=None, legacy=False):
-    """``entry.train_entry`` at TRAIN_BATCH built with ``routes`` (with
-    ``legacy``, ``entry.legacy_train_entry``), stepped once per flag (True:
-    encoder frozen), launch counters reset just before and read just after;
+def _train_run(dev, dtype, frozen_flags, routes=None, legacy=False,
+               enc_name="gm_tiny", batch_size=TRAIN_BATCH):
+    """``entry.train_entry`` of ``enc_name`` at ``batch_size`` built with
+    ``routes`` (with ``legacy``, ``entry.legacy_train_entry``), stepped once
+    per flag (True: encoder frozen), launch counters reset just before and
+    read just after (also each step's apart, the last of the returns);
     fails if a frozen step moves the encoder."""
     from ceigm_unet_tpu_torch.entry import legacy_train_entry, train_entry
     from ceigm_unet_tpu_torch.ops import _build
     if legacy:
-        model, step, batch = legacy_train_entry(dev, dtype, TRAIN_BATCH,
+        model, step, batch = legacy_train_entry(dev, dtype, batch_size,
                                                 SEED)
     else:
-        model, step, batch = train_entry(dev, dtype, TRAIN_BATCH, SEED,
-                                         **(routes or {}))
+        model, step, batch = train_entry(dev, dtype, batch_size, SEED,
+                                         enc_name=enc_name, **(routes or {}))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     enc0 = [p.detach().clone() for p in model.encoder.parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    losses, times, zero, dead = [], [], None, set()
+    losses, times, zero, dead, steps = [], [], None, set(), []
     first = frozen_flags.index(False)
     for i, frozen in enumerate(frozen_flags):
         hooks = watch_dead_relus(model, dead) if i == first else []
+        before = dict(_build.launch_counts)
         t0 = time.perf_counter()
         losses.append(step(batch, freeze_encoder=frozen,
                            generator=gen)["loss"].item())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        steps.append({k: v - before.get(k, 0)
+                      for k, v in _build.launch_counts.items()
+                      if v != before.get(k, 0)})
         for h in hooks:
             h.remove()
         if frozen and not all(torch.equal(p, q) for p, q in zip(
@@ -1169,7 +1285,7 @@ def _train_run(dev, dtype, frozen_flags, routes=None, legacy=False):
     counts = dict(_build.launch_counts)
     mem = torch.cuda.max_memory_allocated() / 2**30
     return (model, enc0, losses, times, counts, mem, zero, sorted(dead),
-            batch, gen)
+            batch, gen, steps)
 
 
 def phase_trainer(dev, gpu):
@@ -1182,7 +1298,7 @@ def phase_trainer(dev, gpu):
     from ceigm_unet_tpu_torch.losses import dice_ce_loss
 
     flags = [True] * 2 + [False] * 8
-    model, enc0, losses, times, counts, mem, zero, dead, batch, gen = \
+    model, enc0, losses, times, counts, mem, zero, dead, batch, gen, _ = \
         _train_run(dev, torch.bfloat16, flags)
     want = {k: v * 10 for k, v in PER_TRAIN_STEP.items()}
     want["scan2d"] = 2 * FROZEN_SCANS + 8 * PER_TRAIN_STEP["scan2d"]
@@ -1496,9 +1612,16 @@ def phase_selective_scan(dev, gpu):
 # gm_tiny 224x224 quad blocks per shape: (side, channels Din, blocks); each
 # runs K13 once forward (and its flip mode once backward) on the kernel
 # route, and K14 once on the int8 route (D per group = Din / 4)
-QUAD_SHAPES = [(56, 64, 5), (28, 128, 6), (14, 348, 12), (7, 448, 3)]
-# DySample's per-group images at 224x224 (4 groups): (H, W, C / 4)
-PERGROUP_SHAPES = [(7, 7, 112), (14, 14, 87), (28, 28, 32)]
+QUAD_SHAPES = model_stages()
+
+
+def pergroup_shapes(enc_name="gm_tiny"):
+    """DySample's per-group images at 224x224 (4 groups): (H, W, C / 4) of
+    stages 4, 3, 2; gm_tiny (7, 7, 112), (14, 14, 87), (28, 28, 32)."""
+    return [(S, S, C // 4) for S, C, _ in model_stages(enc_name)[:0:-1]]
+
+
+PERGROUP_SHAPES = pergroup_shapes()
 KERNEL_ROUTE = dict(dwconv="kernel", dysample_grouped=False)
 # launches of one forward on each route, and of one unfrozen train step
 PER_FORWARD_KERNEL_ROUTE = {
@@ -1512,11 +1635,12 @@ PER_FORWARD_INT8 = {**{k: v for k, v in PER_FORWARD.items()
                        if k != "quad_scan_ln"}, "quad_scan_ln_q8": 26}
 
 
-def route_kernel_cases(dev):
-    """The route kernels, in the form of :func:`kernel_cases`: the
-    single-grid grid-sample at DySample's per-group shapes and one non-2x
-    size; K13 forward and K14 at every quad-block shape. K13's flip mode is
-    returned apart (its time is per backward)."""
+def route_kernel_cases(dev, enc_name="gm_tiny"):
+    """The route kernels, in the form of :func:`kernel_cases`, at the
+    shapes of ``enc_name``: the single-grid grid-sample at DySample's
+    per-group shapes and one non-2x size; K13 forward and K14 at every
+    quad-block shape. K13's flip mode is returned apart (its time is per
+    backward)."""
     import torch.nn.functional as F
     from ceigm_unet_tpu_torch.models.ss2d import q8
     from ceigm_unet_tpu_torch.ops import dwconv, grid_sample, quad_scan
@@ -1598,34 +1722,38 @@ def route_kernel_cases(dev):
         return make
 
     src = "ceigm_unet_tpu_torch/csrc/"
+    stages = model_stages(enc_name)
+    S1, D1 = stages[0][0], stages[0][1] // 4
+    S3, C3 = stages[2][:2]
     forward = {
         "grid_sample_bilinear": (
             "cuda", src + "grid_sample.cu",
             "ceigm_unet_tpu/ops/grid_sample.py:527 (K6), :259 (K7)",
             [(f"{H}->{2 * H} C{C} x4 groups", 1, gs1(H, W, C, 2 * H, 2 * W,
                                                      4))
-             for H, W, C in PERGROUP_SHAPES]
-            + [("14x14->20x24 C87 (not on the path)", 0,
-                gs1(14, 14, 87, 20, 24, 1)),
-               ("14->28 C87 x4 groups, grid far outside [-1, 1] (not on the "
-                "path)", 0, gs1(14, 14, 87, 28, 28, 4, 4.0)),
-               ("14->28 C348 (not on the path)", 0,
-                gs1(14, 14, 348, 28, 28, 1))]),
+             for H, W, C in pergroup_shapes(enc_name)]
+            + [(f"{S3}x{S3}->20x24 C{C3 // 4} (not on the path)", 0,
+                gs1(S3, S3, C3 // 4, 20, 24, 1)),
+               (f"{S3}->{2 * S3} C{C3 // 4} x4 groups, grid far outside "
+                "[-1, 1] (not on the path)", 0,
+                gs1(S3, S3, C3 // 4, 2 * S3, 2 * S3, 4, 4.0)),
+               (f"{S3}->{2 * S3} C{C3} (not on the path)", 0,
+                gs1(S3, S3, C3, 2 * S3, 2 * S3, 1))]),
         "dwconv3x3": ("cuda", src + "dwconv3.cu",
                       "ceigm_unet_tpu/ops/quad_scan_bl.py:574",
                       [(f"{S}x{S} C{C}", n, dw(S, C, False))
-                       for S, C, n in QUAD_SHAPES]),
+                       for S, C, n in stages]),
         "quad_scan_ln_q8": ("cuda", src + "quad_scan_ln.cu",
                             "ceigm_unet_tpu/ops/quad_scan.py:542 quant=True",
                             [(f"{S}x{S} D{C // 4}", n, quad8(S, C // 4))
-                             for S, C, n in QUAD_SHAPES]
-                            + [("56x56 D16, long memory (not on the path)",
-                                0, quad8(56, 16, long_memory=True))]),
+                             for S, C, n in stages]
+                            + [(f"{S1}x{S1} D{D1}, long memory (not on the "
+                                "path)", 0, quad8(S1, D1, long_memory=True))]),
     }
     backward = {"dwconv3x3_flip": (
         "cuda", src + "dwconv3.cu",
         "ceigm_unet_tpu/ops/quad_scan_bl.py:574 flip=True",
-        [(f"{S}x{S} C{C}", n, dw(S, C, True)) for S, C, n in QUAD_SHAPES])}
+        [(f"{S}x{S} C{C}", n, dw(S, C, True)) for S, C, n in stages])}
     return forward, backward
 
 
@@ -3634,13 +3762,16 @@ def _cpu_trajectory(legacy, dtype, base_lr, threads):
 
 @contextlib.contextmanager
 def trajectory_cpu_runs():
-    """Phase 27's CPU work: yields a dict whose ``"start"`` starts it, in
-    TRAJ_POOL spawned processes at the lowest priority (``os.nice(19)``),
-    so that it takes what the phases before 27 leave of the host: the
-    float64 steps of (a) on 2 threads and the trajectories of (b) on the
-    threads TRAJ_CPU_RUNS gives them; then ``"exact"`` is {name: pending}
-    and ``"runs"`` {(name, tag): pending}. The processes are stopped on
-    exit."""
+    """The CPU work of phases 27 and 28: yields a dict whose ``"start"``
+    starts it (``start((28,))`` phase 28's alone), in TRAJ_POOL spawned
+    processes at the lowest priority (``os.nice(19)``), so that it takes
+    what the phases before leave of the host: phase 27's float64 steps of
+    (a) on 2 threads and trajectories of (b) on the threads TRAJ_CPU_RUNS
+    gives them; then ``"exact"`` is {name: pending} and ``"runs"`` {(name,
+    tag): pending}; then phase 28's b2 224x224 fp32 logits of each of
+    CONFIGS and the fp32 and float64 64x64 steps of TRAIN_CONFIG, on 2
+    threads each, in ``"configs"`` {("logits", name) / ("step", name) /
+    ("exact", name): pending}. The processes are stopped on exit."""
     import multiprocessing
     jobs = {(name, tag): (legacy, dtype, lr, threads)
             for name, legacy, lr, *_, cpu_bf16 in TRAJ_MODELS
@@ -3649,15 +3780,26 @@ def trajectory_cpu_runs():
     with contextlib.ExitStack() as stack:
         runs = {}
 
-        def start():
+        def start(phases=(27, 28)):
             pool = stack.enter_context(multiprocessing.get_context(
                 "spawn").Pool(TRAJ_POOL, initializer=os.nice,
                               initargs=(19,)))
-            runs["exact"] = {name: pool.apply_async(
-                _float64_step, (legacy, None, TRAJ_IMG))
-                for name, legacy, *_ in TRAJ_MODELS}
-            runs["runs"] = {key: pool.apply_async(_cpu_trajectory, args)
-                            for key, args in jobs.items()}
+            if 27 in phases:
+                runs["exact"] = {name: pool.apply_async(
+                    _float64_step, (legacy, None, TRAJ_IMG))
+                    for name, legacy, *_ in TRAJ_MODELS}
+                runs["runs"] = {key: pool.apply_async(_cpu_trajectory, args)
+                                for key, args in jobs.items()}
+            if 28 in phases:
+                runs["configs"] = {
+                    **{("logits", name): pool.apply_async(_cpu_logits,
+                                                          (name,))
+                       for name in CONFIGS},
+                    ("step", TRAIN_CONFIG): pool.apply_async(
+                        _cpu_step, (TRAIN_CONFIG, TRAJ_IMG)),
+                    ("exact", TRAIN_CONFIG): pool.apply_async(
+                        _float64_step, (False, None, TRAJ_IMG, 2,
+                                        TRAIN_CONFIG))}
         runs["start"] = start
         yield runs
 
@@ -3667,7 +3809,7 @@ def phase_trajectory(dev, gpu, cpu_runs):
     :func:`trajectory_cpu_runs` (started here if it was not yet). Returns
     the launches of every kernel over the card's runs."""
     if "runs" not in cpu_runs:
-        cpu_runs["start"]()
+        cpu_runs["start"]((27,))
     for name, legacy, *_ in TRAJ_MODELS:
         phase_train_vs_cpu(dev, gpu, None, LEGACY_PER_STEP if legacy
                            else PER_TRAIN_STEP, legacy, TRAJ_IMG,
@@ -3725,6 +3867,114 @@ def phase_trajectory(dev, gpu, cpu_runs):
     return launches
 
 
+# --- phase 28: gm_small and gm_base -----------------------------------------
+
+# the JAX package's other two GroupMamba configurations (upstream
+# GroupMamba-S and -B widths), each served; TRAIN_CONFIG also trains
+CONFIGS = ("gm_small", "gm_base")
+TRAIN_CONFIG = "gm_base"
+CONFIG_STEPS = [True] * 2 + [False] * 3         # frozen, then unfrozen
+# TRAIN_CONFIG's trainer batches: b48 in fp32 needs more than the card's
+# 79.18 GiB (an H100 80GB HBM3 at 700.00 W: b16 peaks at 31.58 GiB, b32 at
+# 60.12, b48 runs out), so fp32 steps at b32; bf16 at b48 peaks at 50.52
+CONFIG_BATCH = {torch.float32: 32, torch.bfloat16: TRAIN_BATCH}
+
+
+def phase_config_kernels(dev, gpu):
+    """Phase 28 (a): every kernel against its plain version at the shapes
+    of TRAIN_CONFIG (phase 3's K1-K5 and phase 14's route kernels at b2
+    fp32, b2 bf16, b32 and b48 fp32 and b128 bf16, each timed beside its
+    bound and library call per b128 bf16 and per b32 fp32 forward; phase
+    7's K8 in both modes at b2 and b48 and at b2 on the 64x64 maps).
+    Returns {name: its phase_kernels entry}."""
+    f32 = torch.float32
+    extra, timed = [(TEST_BATCH, f32), (TRAIN_BATCH, f32)], [(TEST_BATCH,
+                                                              f32)]
+    results = phase_kernels(dev, gpu, kernel_cases(dev, TRAIN_CONFIG, 28),
+                            "forward", extra, timed)
+    forward, backward = route_kernel_cases(dev, TRAIN_CONFIG)
+    results.update(phase_kernels(dev, gpu, forward, "forward", extra, timed))
+    results.update(phase_kernels(dev, gpu, backward, "backward", extra,
+                                 timed))
+    # K8's operands in the quad scan's backward layout, as gm_tiny's
+    shapes = scan_shapes(TRAIN_CONFIG)
+    results["scan2d"] = phase_scan2d(dev, gpu, shapes, (2, TRAIN_BATCH),
+                                     TRAIN_CONFIG, "gm_tiny")
+    results["scan2d"]["max_abs_err_64x64"] = phase_scan2d(
+        dev, gpu, traj_shapes(shapes), (TRAJ_BATCH,), TRAIN_CONFIG,
+        "gm_tiny")["max_abs_err"]
+    return results
+
+
+def phase_config_trainer(dev, gpu):
+    """Phase 28 (c), after the one-step check: ``entry.train_entry`` of
+    TRAIN_CONFIG at 224x224, 2 frozen-encoder then 3 unfrozen steps, in
+    fp32 (TF32 off, the training CLIs' default) and in bf16, at the batch
+    CONFIG_BATCH gives each: finite losses that fall, the encoder bitwise
+    unchanged while frozen, each step's launches (K8 FROZEN_SCANS per
+    frozen step, twice per quad block per unfrozen one), ms/step and peak
+    memory. Returns the launches summed."""
+    per_step = per_train_step(TRAIN_CONFIG)
+    want = [dict(per_step, scan2d=FROZEN_SCANS) if frozen else per_step
+            for frozen in CONFIG_STEPS]
+    total = {}
+    for dtype, batch in CONFIG_BATCH.items():
+        what = f"{TRAIN_CONFIG} b{batch} 224x224 {DTAG[dtype]}"
+        model, _, losses, times, counts, mem, *_, steps = _train_run(
+            dev, dtype, CONFIG_STEPS, enc_name=TRAIN_CONFIG,
+            batch_size=batch)
+        del model
+        torch.cuda.empty_cache()
+        if steps != want:
+            fail(f"trainer {what}: launches per step {steps}, expected "
+                 f"{want}")
+        if not all(np.isfinite(losses)):
+            fail(f"trainer {what}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"trainer {what}: the loss did not fall: {losses}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        n = CONFIG_STEPS.count(True)
+        log(f"trainer {what}"
+            + (" (TF32 off)" if dtype == torch.float32 else "")
+            + f": losses {[round(v, 5) for v in losses]}; frozen steps "
+            f"{[round(t, 1) for t in times[:n]]} ms, unfrozen "
+            f"{[round(t, 1) for t in times[n:]]} ms (median "
+            f"{statistics.median(times[n:]):.3f} ms/step); peak memory "
+            f"{mem:.2f} GiB; encoder unchanged over the frozen steps; K8 "
+            f"{steps[0]['scan2d']} per frozen step, {steps[-1]['scan2d']} "
+            f"per unfrozen step; launches {counts} | {gpu}")
+    return total
+
+
+def phase_configs(dev, gpu, cpu_runs):
+    """Phase 28 (see the module docstring), on the CPU work of
+    :func:`trajectory_cpu_runs` (phase 28's alone started here if it was
+    not yet). Returns the kernel entries of (a) and the launches on each
+    configuration's path: its serving, and for TRAIN_CONFIG also its two
+    trainers."""
+    if "configs" not in cpu_runs:
+        cpu_runs["start"]((28,))
+    cpu = cpu_runs["configs"]
+    kernels = phase_config_kernels(dev, gpu)
+    launches = {}
+    for name in CONFIGS:
+        per = per_forward(name)
+        model, *_ = phase_model(dev, None, per, name, enc_name=name,
+                                cpu=cpu["logits", name])
+        phase_throughput(model, dev, gpu, name)
+        launches[name] = phase_serving(model, dev, gpu, per, name)
+        del model
+        torch.cuda.empty_cache()
+    phase_train_vs_cpu(dev, gpu, None, per_train_step(TRAIN_CONFIG), False,
+                       TRAJ_IMG, cpu["exact", TRAIN_CONFIG], TRAIN_CONFIG,
+                       cpu["step", TRAIN_CONFIG])
+    for k, v in phase_config_trainer(dev, gpu).items():
+        launches[TRAIN_CONFIG][k] = launches[TRAIN_CONFIG].get(k, 0) + v
+    log(f"configs: launches on each path {launches}")
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -3742,8 +3992,9 @@ def main() -> int:
 
 
 def _phases(dev, gpu, cpu_runs) -> int:
-    """Phases 2-27 and the last two lines (see the module docstring);
-    ``cpu_runs``: phase 27's CPU work, started after phase 3."""
+    """Phases 2-28 and the last two lines (see the module docstring);
+    ``cpu_runs``: the CPU work of phases 27 and 28, started after phase
+    3."""
     from ceigm_unet_tpu_torch.ops import _build
 
     def timed(phase, fn, *args):
@@ -3760,8 +4011,8 @@ def _phases(dev, gpu, cpu_runs) -> int:
                     "forward", [(TEST_BATCH, torch.float32),
                                 (TRAIN_BATCH, torch.float32)],
                     [(TEST_BATCH, torch.float32)])
-    # phase 27's CPU runs start once phase 3 has timed the kernels, TRAJ_POOL
-    # at a time beside phases 4-26
+    # the CPU runs of phases 27 and 28 start once phase 3 has timed the
+    # kernels, TRAJ_POOL at a time beside phases 4-26
     cpu_runs["start"]()
     model, *_ = timed("4 model", phase_model, dev)
     serving = timed("5 serving", phase_serving, model, dev, gpu)
@@ -3805,6 +4056,8 @@ def _phases(dev, gpu, cpu_runs) -> int:
                                      gpu)
     trajectory = timed("27 training trajectories", phase_trajectory, dev,
                        gpu, cpu_runs)
+    at_config, configs = timed("28 gm_small and gm_base", phase_configs,
+                               dev, gpu, cpu_runs)
     kernels["scan2d"]["launches_legacy_trainer"] = legacy_training["scan2d"]
     kernels["sscan_dir"]["launches_legacy_trainer"] = \
         legacy_training["sscan_dir"]
@@ -3837,6 +4090,16 @@ def _phases(dev, gpu, cpu_runs) -> int:
         kernels[name]["launches_test_set"] = test_set.get(name, 0)
     for name in [*PER_FORWARD, "scan2d"]:
         kernels[name]["launches_training_cli"] = training_cli.get(name, 0)
+    # on phase 28's paths: each configuration's serving, and TRAIN_CONFIG's
+    # trainers; and phase 28 (a)'s checks and times at TRAIN_CONFIG's shapes
+    for name in CONFIGS:
+        for k in (*PER_FORWARD, *(("scan2d",) if name == TRAIN_CONFIG
+                                  else ())):
+            kernels[k][f"launches_{name}"] = configs[name].get(k, 0)
+    for name, entry in at_config.items():
+        kernels[name][f"at_{TRAIN_CONFIG}"] = {
+            k: v for k, v in entry.items()
+            if k not in ("name", "route", "source", "replaces")}
     if any(k["launches"] == 0 or k.get("launches_test_set") == 0
            or k.get("launches_training_cli") == 0
            or k.get("launches_ring_scan") == 0
@@ -3844,6 +4107,7 @@ def _phases(dev, gpu, cpu_runs) -> int:
            or k.get("launches_sp_model") == 0
            or k.get("launches_sp_legacy") == 0
            or k.get("launches_trajectory") == 0
+           or any(k.get(f"launches_{name}") == 0 for name in CONFIGS)
            for k in kernels.values()):
         fail("a kernel was not launched on its path")
     log(gpu)

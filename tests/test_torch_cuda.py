@@ -120,12 +120,14 @@ def test_quad_scan_ln_kernel(dev, shape, dtype):
 # L below a chunk (3x4) and 1 (1x1), L not a multiple of one (5x9, 9x7),
 # a column walk with H > W (50x3), K < 4, D at every chunk shape (16 lanes;
 # 32 lanes with 1, 2, 3 or 4 channels each: D 5, 33, 40, 64, 96, 128);
-# 37 x 3 (b, k) chains, whose last wave of blocks is partial
+# 37 x 3 (b, k) chains, whose last wave of blocks is partial; gm_base's 28x28
+# D48 and 14x14 D106
 @pytest.mark.parametrize("shape,dirs", [
     ((1, 3, 4, 16), (1, 2, 3, 4)), ((2, 1, 1, 5), (1, 2, 3, 4)),
     ((2, 5, 9, 40), (4, 3, 2, 1)), ((1, 50, 3, 33), (2, 4)),
     ((2, 9, 7, 64), (3, 1, 4, 2)), ((37, 14, 14, 96), (2, 4, 1)),
-    ((1, 16, 17, 128), (1, 2, 3, 4))])
+    ((1, 16, 17, 128), (1, 2, 3, 4)), ((2, 28, 28, 48), (1, 2, 3, 4)),
+    ((2, 14, 14, 106), (1, 2, 3, 4))])
 def test_quad_scan_ln_kernel_edges(dev, shape, dirs, dtype):
     """Model-layout operands: u and dt (B, L, K, D) GEMM outputs and Bs, Cs
     slices of an x_dbl (B, L, K, R + 2), viewed as (B, K, L[, D])."""
@@ -165,7 +167,8 @@ def test_cffn_kernels(dev, HWC, dtype, tap_all):
 
 @pytest.mark.parametrize("fc2", [False, True])
 @pytest.mark.parametrize("KN", [(348, 348), (128, 512), (512, 128), (64, 256),
-                                (256, 64), (16, 32), (40, 6), (24, 5)])
+                                (256, 64), (16, 32), (40, 6), (24, 5),
+                                (424, 1696), (1696, 424)])
 def test_ffn_gemm_kernel_sums_every_k_column(dev, KN, fc2):
     """The bf16-weight GEMM at M 392 (three 128-row tiles and 8 rows), K 348
     (padded to 352; the last 64-column stage mostly zeros) with N 348 (a
@@ -198,13 +201,14 @@ def test_ffn_gemm_kernel_sums_every_k_column(dev, KN, fc2):
 # (M, K, N): the six fc1/fc2 shapes of a b2 forward (M = 2 * H * W), then M 1
 # and M 200 (not a multiple of a tile's rows), N 1 / 87 (rows that are no
 # whole float4s) / 348 / 1392, K 4 (one stage), 345 (padded to 348) and
-# 1392, and three b32 shapes; both tiles run, 128 x 128 (N > 64) and
-# 256 x 64 (N <= 64).
+# 1392, three b32 shapes, and gm_base's b2 fc1 and fc2 at 14x14; both tiles
+# run, 128 x 128 (N > 64) and 256 x 64 (N <= 64).
 F32_GEMM = [(392, 348, 1392), (392, 1392, 348), (1568, 128, 512),
             (1568, 512, 128), (6272, 64, 256), (6272, 256, 64),
             (1, 1392, 348), (200, 345, 87), (200, 4, 1), (391, 1392, 1),
             (1000, 64, 1392), (6272, 348, 87), (6272, 348, 1392),
-            (25088, 512, 128), (100352, 256, 64)]
+            (25088, 512, 128), (100352, 256, 64), (392, 424, 1696),
+            (392, 1696, 424)]
 
 
 @pytest.mark.parametrize("MKN", F32_GEMM,
@@ -255,10 +259,10 @@ def test_ffn_gemm_fp32_reads_linear_weight_in_place(dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 # batch 32 at 28->56 (12.8M outputs) runs many blocks; C 348 (cg 87) has
 # channel items that straddle two groups; C 12 (cg 3) has groups narrower
-# than an item, on 24-byte rows
+# than an item, on 24-byte rows; C 512, gm_small's and gm_base's 7x7 source
 @pytest.mark.parametrize("BHWC", [(2, 7, 7, 448), (2, 28, 28, 128),
                                   (32, 28, 28, 128), (2, 14, 14, 348),
-                                  (2, 5, 7, 12)])
+                                  (2, 5, 7, 12), (2, 7, 7, 512)])
 # offsets in pixels; at 60 most of the grid lies far outside [-1, 1], so
 # the border clamp acts on all four edges
 @pytest.mark.parametrize("offset_scale", [0.1, 3.0, 60.0])
@@ -280,10 +284,12 @@ def test_grid_sample_kernel(dev, BHWC, dtype, offset_scale):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 # the three b128 model shapes at b2 (C2 174 = 5 * 32 + 14: a partial last
 # chunk, 8-byte items in bf16); C 2 (one c2) and 6; H below a strip (3, 1),
-# W over one tile (two tiles of 20 and of 17), W below a strip, H != W
+# W over one tile (two tiles of 20 and of 17), W below a strip, H != W;
+# gm_base's 14x14 C424 (C2 212 = 6 * 32 + 20) and 56x56 C96
 @pytest.mark.parametrize("HWC", [(14, 14, 348), (28, 28, 128), (56, 56, 64),
                                  (5, 7, 6), (3, 40, 2), (9, 4, 64),
-                                 (16, 33, 128), (1, 5, 348)])
+                                 (16, 33, 128), (1, 5, 348), (14, 14, 424),
+                                 (56, 56, 96)])
 def test_lgag_kernel(dev, HWC, dtype):
     H, W, C = HWC
     g = torch.Generator().manual_seed(C + H)
@@ -372,7 +378,8 @@ def _scan2d_operands(g, shape, dev, layout, long_memory=False):
 @pytest.mark.parametrize("layout", ["contiguous", "model", "legacy",
                                     "stride0"])
 # gm_tiny b48 224x224: stage 1 (56x56, D 16), stage 3 (14x14, D 87) and
-# stage 4 (7x7, D 112) with 388 blocks, a partial last wave; the legacy
+# stage 4 (7x7, D 112) with 388 blocks, a partial last wave; gm_base's
+# 14x14 D106 and 28x28 D48 at b48; the legacy
 # tiny_0230s widths: stage 1 (D 96), stage 4 (D 768, six channel tiles); a
 # ragged 200 (two tiles of 25 16-byte items); L 15 and 117, below and not a
 # multiple of a run, with H != W under the column walks; D 1, 6 and 3 (4-,
@@ -382,7 +389,8 @@ def _scan2d_operands(g, shape, dev, layout, long_memory=False):
                                    (2, 56, 56, 96), (3, 6, 8, 200),
                                    (4, 7, 7, 768), (2, 3, 5, 16),
                                    (3, 13, 9, 32), (2, 6, 10, 1),
-                                   (2, 5, 7, 6), (2, 9, 4, 3)])
+                                   (2, 5, 7, 6), (2, 9, 4, 3),
+                                   (48, 14, 14, 106), (48, 28, 28, 48)])
 def test_scan2d_kernel(dev, shape, adjoint, layout):
     B, H, W, D = shape
     g = torch.Generator().manual_seed(D)
@@ -447,7 +455,9 @@ def _inception_taps(g, HID, n_id, dev):
     # strip last), 56 as two runs of 4
     (2, 28, 28, 512, 320, 0, 0.1, "composite"),
     (1, 45, 20, 256, 160, 0, 0.1, "composite"),
-    (2, 56, 56, 256, 160, 0, 3.0, "composite")],
+    (2, 56, 56, 256, 160, 0, 3.0, "composite"),
+    # gm_base's 14x14 stencil: HID 1696, 212 channels a group, 1060 identity
+    (2, 14, 14, 1696, 1060, 0, 0.1, "composite")],
     ids=lambda c: "b{}-{}x{}-HID{}-id{}-off{}-dwb{}-{}".format(*c))
 def test_dw3_gelu_inception7_kernel(dev, case):
     """``dw3_gelu_inception7`` (K3's stencil between the GEMMs,
