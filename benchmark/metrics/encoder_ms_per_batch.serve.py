@@ -1,0 +1,8 @@
+"""Device time of the operations launched inside the model's encoder
+(forward hooks), per served batch."""
+LAYER, UNIT, BETTER, MOVES = "Model", "ms", "lower", "slices_per_s"
+
+
+def read(ctx):
+    s = ctx.trace.range_s("bench.encoder")
+    return s / ctx.traced["forwards"] * 1e3 if s > 0 else None
