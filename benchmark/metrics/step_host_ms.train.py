@@ -1,0 +1,9 @@
+"""Host time of the whole training step (the span ``train_step``), per
+step."""
+from benchmark import spans
+
+LAYER, UNIT, BETTER, MOVES = "Trainer", "ms", "lower", "train_samples_per_s"
+
+
+def read(ctx):
+    return spans.per_step_ms(ctx, "train_step")

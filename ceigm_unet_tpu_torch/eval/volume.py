@@ -6,9 +6,18 @@ to the patch size (exact scipy order-3 zoom as matrix products),
 normalised, run through the model, argmaxed and zoomed back with scipy's
 order-0 index map. The host touches the data twice: upload and download.
 ``eval_single_volume`` scores the map with ``SegMeter`` on the host.
+
+Spans (``utils/spans.py``, recorded only under a profiler): one
+``predict_volume`` per call, its request a per-process volume number, with
+counts ``slices`` (D), ``padded`` (zero slices added to fill the last
+batch) and ``batches``; inside it ``predict_volume.pad``, then per batch
+``.upload``, ``.zoom``, ``.model``, ``.argmax``, ``.zoom_back`` and
+``.download``, then ``.gather`` (the maps joined and cut to D, and the
+batches' maps and the padded copy released).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -16,6 +25,9 @@ import torch
 
 from ceigm_unet_tpu_torch.eval.metrics import SegMeter
 from ceigm_unet_tpu_torch.ops.resize import zoom_slices, zoom_slices_nearest
+from ceigm_unet_tpu_torch.utils.spans import span
+
+_volumes = itertools.count()      # the request number of each volume
 
 
 @torch.no_grad()
@@ -23,10 +35,22 @@ def _predict_batch(model: torch.nn.Module, slices: torch.Tensor,
                   patch: Tuple[int, int],
                   out_hw: Tuple[int, int]) -> torch.Tensor:
     """slices (B, H, W) raw -> (B, H, W) int64 class map at out_hw."""
-    x = zoom_slices(slices, patch, order=3)
-    x = (x - 0.5) / 0.5              # Normalize(0.5, 0.5), as in training
-    logits = model(x[..., None])                       # (B, p, p, classes)
-    return zoom_slices_nearest(torch.argmax(logits, dim=-1), out_hw)
+    with span("predict_volume.zoom"):
+        x = zoom_slices(slices, patch, order=3)
+        x = (x - 0.5) / 0.5          # Normalize(0.5, 0.5), as in training
+    with span("predict_volume.model"):
+        logits = model(x[..., None])                   # (B, p, p, classes)
+    with span("predict_volume.argmax"):
+        classes = torch.argmax(logits, dim=-1)
+    with span("predict_volume.zoom_back"):
+        return zoom_slices_nearest(classes, out_hw)
+
+
+def _download(classes: torch.Tensor) -> np.ndarray:
+    """The batch's class map on the host; nothing keeps the device copy
+    alive into the next batch."""
+    with span("predict_volume.download"):
+        return classes.cpu().numpy()
 
 
 def predict_volume(model: torch.nn.Module, volume: np.ndarray,
@@ -37,15 +61,23 @@ def predict_volume(model: torch.nn.Module, volume: np.ndarray,
     device = next(model.parameters()).device
     D, H, W = volume.shape
     pad = (-D) % batch_size
-    vol = np.concatenate([volume, np.zeros((pad, H, W), volume.dtype)]) \
-        if pad else volume
-    preds = []
-    for i in range(0, vol.shape[0], batch_size):
-        chunk = torch.from_numpy(np.ascontiguousarray(
-            vol[i:i + batch_size], np.float32)).to(device)
-        preds.append(_predict_batch(model, chunk, tuple(patch_size),
-                                   (H, W)).cpu().numpy())
-    return np.concatenate(preds)[:D]
+    with span("predict_volume", request=next(_volumes), slices=D,
+              padded=pad, batches=(D + pad) // batch_size):
+        with span("predict_volume.pad"):
+            vol = np.concatenate([volume, np.zeros((pad, H, W),
+                                                   volume.dtype)]) \
+                if pad else volume
+        preds = []
+        for i in range(0, vol.shape[0], batch_size):
+            with span("predict_volume.upload"):
+                chunk = torch.from_numpy(np.ascontiguousarray(
+                    vol[i:i + batch_size], np.float32)).to(device)
+            preds.append(_download(_predict_batch(model, chunk,
+                                                  tuple(patch_size), (H, W))))
+        with span("predict_volume.gather"):
+            out = np.concatenate(preds)[:D]
+            del preds, vol      # the batches' maps and the padded copy
+            return out
 
 
 def eval_single_volume(model: torch.nn.Module, volume: np.ndarray,

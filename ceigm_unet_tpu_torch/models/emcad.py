@@ -25,6 +25,7 @@ from ceigm_unet_tpu_torch.ops.grid_sample import (
     dysample_grid_sample, dysample_grid_sample_pergroup)
 from ceigm_unet_tpu_torch.ops.tapconv import lgag_fold, lgag_gate
 from ceigm_unet_tpu_torch.parallel import sp_context, sp_ops
+from ceigm_unet_tpu_torch.utils.spans import span
 
 
 def _bn_dict(bn: BatchNorm2d):
@@ -50,13 +51,15 @@ class LGAG(nn.Module):
         self.psi = nn.Sequential(Conv2d(f_int, 1, 1), BatchNorm2d(1))
 
     def folded(self):
-        """The eval-mode fold of :func:`lgag_fold`: weights only."""
-        convs = [(m.weight.permute(2, 3, 1, 0), m.bias) for m in (
-            self.W_g_1, self.W_g_3, self.W_g_5, self.W_x_1, self.W_x_3,
-            self.W_x_5)]
-        return lgag_fold(convs, _bn_dict(self.bn),
-                         self.psi[0].weight.permute(2, 3, 1, 0),
-                         self.psi[0].bias, _bn_dict(self.psi[1]))
+        """The eval-mode fold of :func:`lgag_fold`: weights only; inside
+        the span ``derive.lgag``."""
+        with span("derive.lgag"):
+            convs = [(m.weight.permute(2, 3, 1, 0), m.bias) for m in (
+                self.W_g_1, self.W_g_3, self.W_g_5, self.W_x_1, self.W_x_3,
+                self.W_x_5)]
+            return lgag_fold(convs, _bn_dict(self.bn),
+                             self.psi[0].weight.permute(2, 3, 1, 0),
+                             self.psi[0].bias, _bn_dict(self.psi[1]))
 
     def forward(self, g, x):
         if not self.training:

@@ -17,6 +17,7 @@ from torch import nn
 from ceigm_unet_tpu_torch.ops.activations import gelu
 from ceigm_unet_tpu_torch.ops.ffn import custom_ffn_fused, inception_composite
 from ceigm_unet_tpu_torch.parallel import mesh, sp_context, sp_ops
+from ceigm_unet_tpu_torch.utils.spans import span
 
 
 class Linear(nn.Linear):
@@ -169,12 +170,14 @@ class InceptionDWConvMultiScale(nn.Module):
         self.dwconv_7x7 = Conv2d(g, g, 7, padding=3, groups=g)
 
     def composite(self, dtype: torch.dtype):
-        """(7, 7, 1, C) composite kernel and (C,) bias, flax layout."""
+        """(7, 7, 1, C) composite kernel and (C,) bias, flax layout; inside
+        the span ``derive.ffn``."""
         fl = lambda m: m.weight.permute(2, 3, 1, 0)
-        return inception_composite(
-            self.dim, self.g, fl(self.dwconv_3x3), fl(self.dwconv_5x5),
-            fl(self.dwconv_7x7), self.dwconv_3x3.bias, self.dwconv_5x5.bias,
-            self.dwconv_7x7.bias, dtype)
+        with span("derive.ffn"):
+            return inception_composite(
+                self.dim, self.g, fl(self.dwconv_3x3), fl(self.dwconv_5x5),
+                fl(self.dwconv_7x7), self.dwconv_3x3.bias,
+                self.dwconv_5x5.bias, self.dwconv_7x7.bias, dtype)
 
 
 class CustomFfn(nn.Module):

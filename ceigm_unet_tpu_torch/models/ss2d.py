@@ -35,6 +35,7 @@ from ceigm_unet_tpu_torch.parallel import sp_context
 from ceigm_unet_tpu_torch.parallel.sp_ss2d import (quad_group_ss2d_sp,
                                                    quad_group_ss2d_stacked,
                                                    ss2d_scan)
+from ceigm_unet_tpu_torch.utils.spans import span
 
 
 class SS2DGroup(nn.Module):
@@ -116,27 +117,30 @@ class QuadGroupSS2D(nn.Module):
         block-diagonal projections in ``dt``, the depthwise conv in ``dt``
         (fp32 for the kernel, which takes fp32 taps as the TPU kernel does),
         and the scan's (K, D) parameters (A, dt bias, D, LN scale, LN bias)
-        in fp32."""
-        gs = self.groups()
-        D = gs[0].d_inner
-        bd = lambda ws: torch.block_diag(*ws).to(dt)
-        w_in = [g.in_proj.weight for g in gs]                  # (2D, dg)
-        w_xz = torch.cat([bd([w[:D].t() for w in w_in]),
-                          bd([w[D:].t() for w in w_in])], dim=1)
-        stack = lambda ps: torch.stack([p.reshape(D) for p in ps]).float()
-        conv_dt = torch.float32 if self.dwconv == "kernel" else dt
-        return dict(
-            w_xz=w_xz,
-            conv_w=torch.cat([g.conv2d.weight for g in gs]).to(conv_dt),
-            conv_b=torch.cat([g.conv2d.bias for g in gs]).to(conv_dt),
-            w_x=bd([g.x_proj_weight[0].t() for g in gs]),
-            w_dt=bd([g.dt_projs_weight[0].t() for g in gs]),
-            w_out=bd([g.out_proj.weight.t() for g in gs]),
-            scan=(-torch.exp(stack([g.A_logs for g in gs])),
-                  stack([g.dt_projs_bias for g in gs]),
-                  stack([g.Ds for g in gs]),
-                  stack([g.out_norm.weight for g in gs]),
-                  stack([g.out_norm.bias for g in gs])))
+        in fp32. Inside the span ``derive.ss2d``."""
+        with span("derive.ss2d"):
+            gs = self.groups()
+            D = gs[0].d_inner
+            bd = lambda ws: torch.block_diag(*ws).to(dt)
+            w_in = [g.in_proj.weight for g in gs]              # (2D, dg)
+            w_xz = torch.cat([bd([w[:D].t() for w in w_in]),
+                              bd([w[D:].t() for w in w_in])], dim=1)
+            stack = lambda ps: torch.stack(
+                [p.reshape(D) for p in ps]).float()
+            conv_dt = torch.float32 if self.dwconv == "kernel" else dt
+            return dict(
+                w_xz=w_xz,
+                conv_w=torch.cat([g.conv2d.weight for g in gs]).to(
+                    conv_dt),
+                conv_b=torch.cat([g.conv2d.bias for g in gs]).to(conv_dt),
+                w_x=bd([g.x_proj_weight[0].t() for g in gs]),
+                w_dt=bd([g.dt_projs_weight[0].t() for g in gs]),
+                w_out=bd([g.out_proj.weight.t() for g in gs]),
+                scan=(-torch.exp(stack([g.A_logs for g in gs])),
+                      stack([g.dt_projs_bias for g in gs]),
+                      stack([g.Ds for g in gs]),
+                      stack([g.out_norm.weight for g in gs]),
+                      stack([g.out_norm.bias for g in gs])))
 
     def scan_groups(self, x: torch.Tensor) -> torch.Tensor:
         ring = sp_context.ring()

@@ -52,6 +52,7 @@ from ceigm_unet_tpu_torch.data.device_aug import (apply_params, sample_params,
 from ceigm_unet_tpu_torch.losses import dice_ce_loss
 from ceigm_unet_tpu_torch.parallel import mesh
 from ceigm_unet_tpu_torch.train.lr_scheduler import cosine_annealing_lr
+from ceigm_unet_tpu_torch.utils.spans import span
 
 
 def cosine_lr(base_lr: float, eta_min: float, t_max: int,
@@ -136,7 +137,16 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     With a data-parallel group active the batch is this rank's rows of the
     global batch, the returned loss is the global batch's, and the
     gradients are averaged over the group before the optimizer steps (see
-    the module docstring)."""
+    the module docstring).
+
+    Spans (``utils/spans.py``, recorded only under a profiler): one
+    ``train_step`` per call, its request ``step.count``, with the count
+    ``samples`` (this rank's rows); inside it, in order,
+    ``train_step.prepare`` (the LR and weight-decay writes, ``zero_grad``,
+    the encoder's ``requires_grad_`` toggles), ``train_step.augment`` (with
+    ``device_aug_size`` only), ``.forward``, ``.loss``, ``.backward``,
+    ``.fill`` (missing gradients zero-filled),
+    ``.reduce`` and ``.optimizer``."""
     loss_fn = functools.partial(dice_ce_loss, ce_weight=ce_weight,
                                 dc_weight=dc_weight)
     enc = [g for g in optimizer.param_groups if g.get("name") == "encoder"]
@@ -149,36 +159,49 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     def step(batch, freeze_encoder: bool = False,
              generator: Optional[torch.Generator] = None):
-        model.train()
-        lr = lr_schedule(step.count)
-        for g in optimizer.param_groups:
-            g["lr"] = lr
-        enc["weight_decay"] = 0.0 if freeze_encoder else weight_decay
         image, label = batch["image"], batch["label"]
-        if device_aug_size is not None:
-            gen = step_generator(aug_seed, step.count, image.device)
-            B, H, W = label.shape
-            total, first = mesh.global_rows(B)
-            prm = sample_params(gen, total, H, W, device_aug_size,
-                                image.device)
-            img, label = apply_params(
-                {k: v[first:first + B] for k, v in prm.items()},
-                image[..., 0], label, device_aug_size)
-            image = ((img - 0.5) / 0.5)[..., None]
-        optimizer.zero_grad(set_to_none=True)
-        for p in enc["params"]:
-            p.requires_grad_(not freeze_encoder)
-        try:
-            loss = loss_fn(model(image, generator=generator), label)
-            loss.backward()
-        finally:
-            for p in enc["params"]:
-                p.requires_grad_(True)
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        mesh.reduce_gradients(params)
-        optimizer.step()
+        with span("train_step", request=step.count,
+                  samples=label.shape[0]):
+            with span("train_step.prepare"):
+                model.train()
+                lr = lr_schedule(step.count)
+                for g in optimizer.param_groups:
+                    g["lr"] = lr
+                enc["weight_decay"] = 0.0 if freeze_encoder else weight_decay
+                optimizer.zero_grad(set_to_none=True)
+                for p in enc["params"]:
+                    p.requires_grad_(not freeze_encoder)
+            try:
+                if device_aug_size is not None:
+                    with span("train_step.augment"):
+                        gen = step_generator(aug_seed, step.count,
+                                             image.device)
+                        B, H, W = label.shape
+                        total, first = mesh.global_rows(B)
+                        prm = sample_params(gen, total, H, W,
+                                            device_aug_size, image.device)
+                        img, label = apply_params(
+                            {k: v[first:first + B] for k, v in prm.items()},
+                            image[..., 0], label, device_aug_size)
+                        image = ((img - 0.5) / 0.5)[..., None]
+                with span("train_step.forward"):
+                    logits = model(image, generator=generator)
+                with span("train_step.loss"):
+                    loss = loss_fn(logits, label)
+                del logits          # not held through the backward
+                with span("train_step.backward"):
+                    loss.backward()
+            finally:
+                for p in enc["params"]:
+                    p.requires_grad_(True)
+            with span("train_step.fill"):
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            with span("train_step.reduce"):
+                mesh.reduce_gradients(params)
+            with span("train_step.optimizer"):
+                optimizer.step()
         step.count += 1
         return {"loss": loss.detach()}
 

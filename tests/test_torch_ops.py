@@ -533,6 +533,7 @@ def test_port_imports_no_jax():
             "ceigm_unet_tpu_torch.parallel.sp_model, "
             "ceigm_unet_tpu_torch.utils, "
             "ceigm_unet_tpu_torch.utils.debug, "
+            "ceigm_unet_tpu_torch.utils.spans, "
             "ceigm_unet_tpu_torch.convert.vssm_import; "
             "from ceigm_unet_tpu_torch.entry import legacy_entry, train_entry; "
             "from ceigm_unet_tpu_torch.entry import legacy_train_entry; "
