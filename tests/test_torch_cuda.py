@@ -13,9 +13,11 @@ max|CPU grad| per tensor (tests/test_torch_grad_parity.py's comparison).
 import math
 import re
 
+import numpy as np
 import pytest
 import torch
 
+from ceigm_unet_tpu_torch.eval import volume as served
 from ceigm_unet_tpu_torch.models import build_legacy_model, build_model
 from ceigm_unet_tpu_torch.models.ss2d import q8
 from ceigm_unet_tpu_torch.ops import _build
@@ -47,6 +49,8 @@ from ceigm_unet_tpu_torch.ops.tapconv import lgag_gate, lgag_gate_ref
 from ceigm_unet_tpu_torch.train.trainstep import (cosine_lr, make_optimizer,
                                                   make_train_step,
                                                   param_groups)
+from ceigm_unet_tpu_torch.utils import spans
+from plain_volume import plain_predict_volume
 
 DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 5e-2)}
@@ -344,6 +348,34 @@ def test_gm_test_model_on_card_matches_cpu_and_counts_launches(dev):
                       "cffn_dw3_inception7": 7, "dysample_grid_sample": 3,
                       "lgag_gate": 3}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_predict_volume_stages_the_maps_on_card(dev, monkeypatch):
+    """The staged copy path on the card: at b4 over a 2-batch padded
+    volume the int32 maps equal, bitwise, the plain loop's run on the same
+    card with the same seeded gm_test model; a second call does not touch
+    the first's array; the staging buffer is pinned and one padded volume
+    of uint8; under a profiler each ``.download`` span reports 1 byte a
+    pixel."""
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setattr(served, "_staging", served._Staging())
+    monkeypatch.setattr(spans, "_recorder", spans._Recorder())
+    model = build_model(enc_name="gm_test", device=dev, seed=2).eval()
+    rng = np.random.default_rng(3)
+    vol = rng.random((6, 40, 40)).astype(np.float32)
+    got = served.predict_volume(model, vol, (32, 32), 4)
+    assert got.dtype == np.int32 and got.shape == vol.shape
+    assert np.array_equal(got, plain_predict_volume(model, vol, (32, 32), 4))
+    kept = got.copy()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        served.predict_volume(model, rng.random((5, 40, 40)).astype(
+            np.float32), (32, 32), 4)
+    assert np.array_equal(got, kept)
+    buf = served._staging.bufs[next(model.parameters()).device]
+    assert buf.is_pinned() and buf.numel() == 8 * 40 * 40
+    assert [r["counts"] for r in spans.records()
+            if r["name"] == "predict_volume.download"] == \
+        [{"bytes": 4 * 40 * 40}] * 2
 
 
 # storage orders of a and b (permutations of (B, K, L, D), each its own

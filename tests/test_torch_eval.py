@@ -31,9 +31,11 @@ from ceigm_unet_tpu_torch.convert.checkpoint import (load_model,
 from ceigm_unet_tpu_torch.data import datasets
 from ceigm_unet_tpu_torch.entry import synthetic_batch
 from ceigm_unet_tpu_torch.eval import metrics, plot
-from ceigm_unet_tpu_torch.eval.volume import eval_single_volume
+from ceigm_unet_tpu_torch.eval.volume import (eval_single_volume,
+                                              predict_volume)
 from ceigm_unet_tpu_torch.models import build_model
 from ceigm_unet_tpu_torch.train.loop import setup_logger
+from plain_volume import plain_predict_volume
 
 torch.set_num_threads(1)
 
@@ -313,6 +315,44 @@ def test_gm_test_inference_matches_jax(gm_test, monkeypatch):
                        "jaccard": jmetrics.jaccard_binary(p, g),
                        **jmetrics.surface_metrics(p, g)}
     _same(got, table)
+
+
+@pytest.mark.parametrize("depth", [3, 4, 5])
+@pytest.mark.parametrize("which", ["gm_test", "exact300"])
+def test_predict_volume_matches_the_plain_loop(gm_test, which, depth):
+    """At batch 4, depths below, equal to and one over a multiple of it:
+    ``predict_volume`` returns as int32 exactly the plain loop's maps, on
+    the narrow path (gm_test, 9 classes) and the wide one (300 classes,
+    class ids past 255), and a later call of another depth leaves the
+    returned array as it was (no view of the staging buffer). The model's
+    inputs are the plain loop's, bit for bit."""
+    rng = np.random.default_rng(depth)
+    if which == "gm_test":
+        model, hw, patch = gm_test["model"], (40, 48), (32, 32)
+        vol = rng.random((depth, *hw)).astype(np.float32)
+    else:
+        model, hw, patch = ExactPredictor(300), (10, 12), (8, 8)
+        vol = rng.integers(0, 300, (depth, *hw)).astype(np.float32)
+    seen = []
+    hook = model.register_forward_pre_hook(
+        lambda m, args: seen.append(args[0].clone()))
+    try:
+        got = predict_volume(model, vol, patch, 4)
+        want = plain_predict_volume(model, vol, patch, 4)
+    finally:
+        hook.remove()
+    assert got.dtype == np.int32 and got.shape == vol.shape
+    assert np.array_equal(got, want)
+    # the forward saw the plain loop's inputs bit for bit: full batches,
+    # zero-padded
+    n = -(-depth // 4)
+    assert len(seen) == 2 * n and all(
+        torch.equal(a, b) for a, b in zip(seen[:n], seen[n:]))
+    assert got.max() > (255 if which == "exact300" else 0)
+    kept = got.copy()
+    predict_volume(model, vol.max() - np.concatenate([vol, vol[:3]]),
+                   patch, 4)
+    assert np.array_equal(got, kept)
 
 
 # --- checkpoints ----------------------------------------------------------------

@@ -205,4 +205,5 @@ def test_predict_volume_matches_jax(gm_test):
     want = jpredict_volume(jm.apply, v, vol, (64, 64), batch_size=2)
     got = predict_volume(gm_test["model"], vol, (64, 64), batch_size=2)
     assert got.shape == (3, 80, 80) and got.min() >= 0 and got.max() < 9
+    assert got.dtype == want.dtype == np.int32
     assert (got == want).mean() >= 0.999

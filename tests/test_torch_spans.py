@@ -101,7 +101,15 @@ def test_a_profiled_volume_records_its_stages_and_counts(model, volume):
     assert top["counts"] == {"slices": 5, "padded": 3, "batches": 2}
     children = [r for r in recs if r["parent"] == top["id"]]
     assert [r["name"] for r in children] == \
-        ["predict_volume.pad"] + BATCH_STAGES * 2 + ["predict_volume.gather"]
+        BATCH_STAGES * 2 + ["predict_volume.wait", "predict_volume.gather"]
+    # the zero fill inside the last batch's upload, once per volume
+    uploads = [r for r in children if r["name"] == "predict_volume.upload"]
+    pads = [r for r in recs if r["name"] == "predict_volume.pad"]
+    assert [r["parent"] for r in pads] == [uploads[-1]["id"]]
+    # the map bytes that crossed per batch: 1 a pixel, the narrow path
+    assert [r["counts"] for r in children
+            if r["name"] == "predict_volume.download"] == \
+        [{"bytes": BATCH * 40 * 40}] * 2
     assert all(r["request"] == top["request"] for r in recs)
     assert all(r["start_ns"] <= r["end_ns"] for r in recs)
     # the weight-derived tensors, inside the forwards, once per module
